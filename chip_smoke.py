@@ -3,20 +3,31 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (csrc/, sm_90a) from the checkout, one nvcc per
-   source, all started together, and prints the seconds it took.
+   source, all started together, and the native signing code (g++), and
+   prints the seconds it took.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference):
    padd_chain at B = 8192, repeat 16; pow on the scalar field (e = n - 2)
    and the base field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at
-   B = 4096 and with glv=False, T = 1 (65 windows).
-3. The main path: `verify_batch` on secp256k1 over 8192 signatures in two
-   chunks, about a quarter of them tampered, run 7 times; every boolean must
-   match in every run. Prints each run's verifies/s and their median, and
-   the launch counters of a run, which must be above zero.
-4. The headline: padd_chain adds/s at B = 8192, repeat 16, by chain-length
+   B = 4096 and with glv=False, T = 1 (65 windows); genmul (the comb k*G)
+   at B = 4096, 65 windows, on random scalars plus 0 and n - 1.
+3. Verify: `verify_batch` on secp256k1 over 8192 signatures in two chunks,
+   about a quarter of them tampered, run 7 times; every boolean must match
+   in every run. Prints each run's verifies/s and their median, and the
+   launch counters of a run, which must be above zero.
+4. Sign: `sign_batch` over 8192 (d, z) made from a seed, RFC 6979 nonces,
+   in two chunks, run 7 times; the same signatures must come out of every
+   run, and genmul and pow must have launched. A sample of 256 lanes must
+   equal the host oracle's signature with the pure-Python RFC 6979 nonce.
+   Derive: `derive_public_batch` over the same 8192 d, 7 runs; a sample of
+   256 lanes must equal the host oracle's d*G. All 8192 signatures must
+   pass `verify_batch` on the card under the derived keys, and
+   `recover_batch` (7 runs) must give back every derived key, with the
+   ladder and pow kernels launched. Prints each rate, its runs and median.
+5. The headline: padd_chain adds/s at B = 8192, repeat 16, by chain-length
    differencing (the extra work of a longer chain over its extra time), and
    a check of the chain's result against the host oracle.
-5. Prints the card's name and power limit, a `kernels` JSON line (each
+6. Prints the card's name and power limit, a `kernels` JSON line (each
    kernel's launches on the main path, its error against its twin, its time,
    its twin's time and its bound), and last a JSON line with the device.
 
@@ -44,6 +55,9 @@ INT32_PER_CLK_PER_SM = 64
 ISSUE_PER_CLK_PER_SM = 128
 SMS = 132
 VERIFY_RUNS = 7
+RUNS = 7          # sign, derive and recover
+SIGNS = 8192
+SAMPLE = 256
 
 
 def smi(query: str) -> str:
@@ -119,16 +133,50 @@ def signatures(curve, count: int, distinct: int, seed: int):
     return pubs, zs, sigs, expect
 
 
+def measure_runs(label: str, fn, count: int, runs: int, must_launch, want=None):
+    """Run fn() once to warm up, then `runs` times, each with the launch
+    counts set to 0 just before and read just after. The warm-up must return
+    `want` (where given) and every run what the warm-up returned, with the
+    same launches, `must_launch` among them. Returns (result, items/s of
+    each run, their median, the launches of a run)."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    first = fn()
+    if want is not None and first != want:
+        bad = [i for i, (g, x) in enumerate(zip(first, want)) if g != x]
+        raise AssertionError(f"{label} wrong at {len(bad)} lanes, e.g. {bad[:8]}")
+    rates, launches = [], None
+    for run in range(runs):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t = time.perf_counter()
+        got = fn()
+        dt = time.perf_counter() - t
+        if got != first:
+            raise AssertionError(f"{label}: run {run} differs from the first")
+        if launches is None:
+            launches = dict(K.launches)
+        elif K.launches != launches:
+            raise AssertionError(f"{label} launches changed: {K.launches} != {launches}")
+        rates.append(count / dt)
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} did not launch the {name} kernel")
+    return first, rates, float(np.median(rates)), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from tpu_ecc_torch import native
     from tpu_ecc_torch.curves.specs import get_curve
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import points as P
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.protocols import ecdsa as E
+    from tpu_ecc_torch.protocols import rfc6979
     from tpu_ecc_torch.utils import ec_host as H
 
     dev = torch.device("cuda")
@@ -143,6 +191,9 @@ def main() -> int:
         regs = [ln.strip() for ln in rep.splitlines()
                 if "registers" in ln and "Used" in ln]
         print(f"  {name}: {regs[0] if regs else 'no ptxas report'}")
+    t0 = time.perf_counter()
+    native.build()
+    print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
 
     # -- 2. each kernel against its plain twin, at the main path's shapes ---
@@ -202,6 +253,13 @@ def main() -> int:
          lambda: K.ladder(curve, bases1, mag1, neg1),
          lambda: K.ladder_plain(curve, bases1, mag1, neg1), 3,
          T=1, nw=mag1.shape[0], glv=False)
+    kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
+    mag_g, neg_g = SM.signed_digits(curve, SM.pack_scalars(curve, kg, dev))
+    mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
+    tbl_g = SM._gen_table(curve, dev)
+    hold("genmul", f"nw={mag_g.shape[0]} B=4096",
+         lambda: K.genmul(curve, tbl_g, mag_g, neg_g),
+         lambda: K.genmul_plain(curve, tbl_g, mag_g, neg_g), 10, nw=mag_g.shape[0])
     torch.cuda.synchronize()
 
     # -- 3. the main path: batched ECDSA verify ------------------------------
@@ -209,34 +267,50 @@ def main() -> int:
     t = time.perf_counter()
     pubs, zs, sigs, expect = signatures(curve, 8192, 256, 5)
     print(f"  host oracle made the signatures in {time.perf_counter() - t:.1f} s")
-    warm = E.verify_batch(curve, pubs, zs, sigs)
-    if warm != expect:
-        raise AssertionError("verify_batch (warm-up) disagrees with the expected booleans")
-    rates_v = []
-    for run in range(VERIFY_RUNS):      # the rate is host-bound and spreads
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t = time.perf_counter()
-        got = E.verify_batch(curve, pubs, zs, sigs)
-        verify_s = time.perf_counter() - t
-        if got != expect:
-            bad = [i for i, (g, x) in enumerate(zip(got, expect)) if g != x]
-            raise AssertionError(f"verify_batch wrong at {len(bad)} lanes, e.g. {bad[:8]}")
-        if run == 0:
-            verify_launches = dict(K.launches)
-        elif K.launches != verify_launches:
-            raise AssertionError(f"verify launches changed: {K.launches} != {verify_launches}")
-        rates_v.append(len(sigs) / verify_s)
-    for name in ("pow", "ladder"):
-        if verify_launches[name] <= 0:
-            raise AssertionError(f"verify did not launch the {name} kernel")
-    verify_rate = float(np.median(rates_v))
+    _, rates_v, verify_rate, verify_launches = measure_runs(
+        "verify_batch", lambda: E.verify_batch(curve, pubs, zs, sigs), len(sigs),
+        VERIFY_RUNS, ("pow", "ladder"), want=expect)
     print(f"  {sum(expect)} valid and {len(expect) - sum(expect)} tampered, all as "
           f"expected in each of {VERIFY_RUNS} runs; verifies/s median {verify_rate:.1f}, "
           f"runs {[round(r, 1) for r in rates_v]}; launches per run {verify_launches}")
     torch.cuda.synchronize()
 
-    # -- 4. the headline: point adds per second -------------------------------
+    # -- 4. sign, derive, recover ---------------------------------------------
+    print(f"sign: secp256k1, {SIGNS} (d, z) in 2 chunks, RFC 6979 nonces")
+    rng = np.random.default_rng(6)
+    ds = [int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1 for _ in range(SIGNS)]
+    zs_s = [int.from_bytes(rng.bytes(32), "big") % curve.n for _ in range(SIGNS)]
+    sample = [int(i) for i in rng.choice(SIGNS, SAMPLE, replace=False)]
+    G = H.aff_generator(curve)
+    signed, rates_s, sign_rate, sign_launches = measure_runs(
+        "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), SIGNS, RUNS, ("genmul", "pow"))
+    for i in sample:                # nonces from the pure-Python RFC 6979
+        k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(32, "big"))
+        if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=True):
+            raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
+    print(f"  {SAMPLE} sampled lanes equal the host oracle; signs/s median "
+          f"{sign_rate:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
+          f"{sign_launches}")
+    pubs_d, rates_d, derive_rate, derive_launches = measure_runs(
+        "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), SIGNS, RUNS,
+        ("genmul", "pow"))
+    for i in sample:
+        if pubs_d[i] != H.aff_mul(curve, ds[i], G):
+            raise AssertionError(f"derive_public_batch lane {i} disagrees with the host oracle")
+    print(f"  derive: {SAMPLE} sampled lanes equal the host oracle; derives/s median "
+          f"{derive_rate:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
+          f"{derive_launches}")
+    if E.verify_batch(curve, pubs_d, zs_s, [(r, s) for r, s, _ in signed]) != [True] * SIGNS:
+        raise AssertionError("a signature of sign_batch fails verify_batch")
+    _, rates_r, recover_rate, recover_launches = measure_runs(
+        "recover_batch", lambda: E.recover_batch(curve, zs_s, signed), SIGNS, RUNS,
+        ("ladder", "pow"), want=pubs_d)
+    print(f"  all {SIGNS} signatures verify under the derived keys, and recover_batch "
+          f"gives back every key; recovers/s median {recover_rate:.1f}, runs "
+          f"{[round(r, 1) for r in rates_r]}; launches per run {recover_launches}")
+    torch.cuda.synchronize()
+
+    # -- 5. the headline: point adds per second -------------------------------
     print("headline: padd_chain, B=8192, repeat 16")
     B, repeat = 8192, 16
     a = P.point_from_limbs(curve, a_l)
@@ -269,17 +343,18 @@ def main() -> int:
           f"result checked against the host oracle")
     torch.cuda.synchronize()
 
-    # -- 5. the record --------------------------------------------------------
+    # -- 6. the record --------------------------------------------------------
     launches = {"padd_chain": chain_launches, "pow": verify_launches["pow"],
-                "ladder": verify_launches["ladder"]}
+                "ladder": verify_launches["ladder"], "genmul": sign_launches["genmul"]}
     kernels = []
-    for name in ("padd_chain", "pow", "ladder"):
+    for name in ("padd_chain", "pow", "ladder", "genmul"):
         src, _, _, _, replaces = K.KERNELS[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
                         "launches": launches[name], **rows[name], "library_ms": None})
     print(f"slice: {verify_rate:.1f} verifies/s (median of {VERIFY_RUNS}), "
-          f"{max(rates):.6g} adds/s")
+          f"{sign_rate:.1f} signs/s, {derive_rate:.1f} derives/s, {recover_rate:.1f} "
+          f"recovers/s (medians of {RUNS}), {max(rates):.6g} adds/s")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

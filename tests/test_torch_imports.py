@@ -1,14 +1,21 @@
-"""tpu_ecc_torch and the chip scripts import neither jax nor tpu_ecc (AST scan)."""
+"""tpu_ecc_torch and the chip scripts import neither jax nor tpu_ecc (AST
+scan), and nothing in tpu_ecc_torch names a path into tpu_ecc/, so no source
+is built from there."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "tpu_ecc_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                            ROOT / "chip_profile.py"]
+PKG = ROOT / "tpu_ecc_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "tpu_ecc")
+# a "file:line" reference to the TPU kernel a CUDA kernel replaces is text,
+# not a path the code opens
+_REFERENCE = re.compile(r"tpu_ecc/[\w/]+\.py:\d+")
+_INTO_REFERENCE = re.compile(r"(^|[/\\])tpu_ecc([/\\]|$)")
 
 
 def _imported(tree: ast.AST):
@@ -23,6 +30,20 @@ def _imported(tree: ast.AST):
             yield str(node.args[0].value)
 
 
+def _strings(tree: ast.AST):
+    """String constants other than docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -30,6 +51,34 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [v for v in _strings(tree)
+           if _INTO_REFERENCE.search(v) and not _REFERENCE.fullmatch(v)]
+    assert not bad, f"{path.name} names paths into tpu_ecc/: {bad}"
+
+
+def test_native_sources_are_the_ports_own():
+    """The native code and the CUDA kernels build from files inside
+    tpu_ecc_torch; the native source is the JAX package's file, unchanged;
+    no C++ source includes a file from tpu_ecc/."""
+    from tpu_ecc_torch import native
+    from tpu_ecc_torch.ops import kernels
+
+    for p in (native.SOURCE, kernels.CSRC):
+        assert pathlib.Path(p).resolve().is_relative_to(PKG)
+    assert (pathlib.Path(native.SOURCE).read_bytes()
+            == (ROOT / "tpu_ecc" / "native" / "fastcrypt.cpp").read_bytes())
+    for src in list(PKG.rglob("*.cu")) + list(PKG.rglob("*.cpp")):
+        includes = re.findall(r'#include\s*"([^"]+)"', src.read_text())
+        assert not [i for i in includes if "tpu_ecc" in i], src.name
+
+
 def test_scan_sees_the_package():
-    names = {p.name for p in SOURCES}
-    assert {"fe.py", "kfe.py", "kernels.py", "ecdsa.py", "chip_smoke.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"tpu_ecc_torch/ops/fe.py", "tpu_ecc_torch/ops/kfe.py",
+            "tpu_ecc_torch/ops/kernels.py", "tpu_ecc_torch/protocols/ecdsa.py",
+            "tpu_ecc_torch/protocols/rfc6979.py", "tpu_ecc_torch/native/__init__.py",
+            "chip_smoke.py"} <= names

@@ -79,3 +79,17 @@ def test_ladder_matches_plain(dev, k256, glv):
     out = kernels.ladder(k256, bases, mag, neg, glv=glv)
     torch.cuda.synchronize()
     assert torch.equal(out, kernels.ladder_plain(k256, bases, mag, neg, glv=glv))
+
+
+@pytest.mark.parametrize("b", [256, 4096])
+def test_genmul_matches_plain(dev, k256, b):
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    rng = np.random.default_rng(5)
+    ks = [0, k256.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(b - 2)]
+    mag, neg = SM.signed_digits(k256, SM.pack_scalars(k256, ks, dev))
+    tbl = SM._gen_table(k256, dev)
+    mag, neg = mag.flip(0), neg.flip(0)
+    out = kernels.genmul(k256, tbl, mag, neg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.genmul_plain(k256, tbl, mag, neg))

@@ -59,6 +59,10 @@ def _torch(name, args):
         pts = [P.point_from_limbs(CURVE, a.reshape(3, f.n_limbs, B)) for a in t]
         out = P.padd(*pts) if name == "padd" else P.pdouble(*pts)
         return P.point_limbs(P.steady(out)).reshape(-1, B)
+    if name == "padd_mixed":
+        acc = P.point_from_limbs(CURVE, t[0].reshape(3, f.n_limbs, B))
+        out = P.padd_mixed(acc, F.fe_steady(f, t[1]), F.fe_steady(f, t[2]))
+        return P.point_limbs(P.steady(out)).reshape(-1, B)
     xs = [F.fe_steady(f, a) for a in t]
     op = name.split("_", 1)[1]
     if op == "mul_beta":
@@ -100,6 +104,12 @@ def test_instruction_count_fuses():
     q = a * c                    # IMUL, used by two adds
     _, counts = em.function("f", [("x", 4)], [u & 8191, q + a, q + b])
     assert counts == {"imad": 3, "alu": 1, "other": 4}
+    # the generated mixed add (11 field multiplies) counts fewer of each
+    # class than the full add (12), and its callees' counts are in it
+    _, by_fn = kfe.kernel_header(CURVE, ["padd", "padd_mixed", "fp_mul"])
+    mixed, full = by_fn["padd_mixed"], by_fn["padd"]
+    assert all(0 < mixed[c] < full[c] for c in kfe.INSTRUCTION_CLASSES)
+    assert mixed["imad"] > 8 * by_fn["fp_mul"]["imad"]
 
 
 def test_formulas_not_ported_raise():

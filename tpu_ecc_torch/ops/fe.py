@@ -655,6 +655,20 @@ def fmul_shift(spec: FieldSpec, u_limbs: torch.Tensor, g: int,
     return carried[shift_limbs:shift_limbs + out_limbs]
 
 
+def field_to_scalar_raw(field: FieldSpec, scalar: FieldSpec, x: FE):
+    """Field element -> canonical integer limbs mod the group order n.
+
+    Uses p < 2n (Hasse), so one conditional subtract reduces. Returns
+    (limbs [ns, *b], was_reduced bool[*batch]); the flag is RecoveryId's
+    x-overflow bit (k256/src/ecdsa.rs:192-197)."""
+    assert field.p < 2 * scalar.p
+    raw = fto_raw_canonical(x)
+    if (field.limb_bits, field.n_limbs) != (scalar.limb_bits, scalar.n_limbs):
+        raw = relimb(raw, field.limb_bits, scalar.limb_bits, scalar.n_limbs)
+    return _cond_sub(scalar, raw,
+                     int_to_limbs(scalar.p, scalar.n_limbs, scalar.limb_bits))
+
+
 def feq(x: FE, y: FE) -> torch.Tensor:
     """Batched equality -> bool[*batch]."""
     xc, yc = fcanonical(x), fcanonical(y)
@@ -712,3 +726,52 @@ def finv(x: FE) -> FE:
     """Constant-time Fermat inversion x^(p-2); maps 0 -> 0 (callers mask the
     CtOption-none case separately, as with the reference's invert)."""
     return fpow_const(x, x.spec.p - 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _ts_constants(spec: FieldSpec):
+    """Tonelli–Shanks constants: p-1 = q * 2^s with q odd; z = a non-residue."""
+    p = spec.p
+    q, s_ = p - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s_ += 1
+    z = 2
+    while pow(z, (p - 1) // 2, p) != p - 1:
+        z += 1
+    return q, s_, z
+
+
+def fsqrt(x: FE):
+    """Batched square root. Returns (root, is_square: bool[*batch]).
+
+    p = 3 mod 4: one power (p+1)/4, which runs on the `pow` kernel (cf.
+    p192/src/arithmetic/field.rs:103-107, k256 field.rs:220-255). Otherwise
+    constant-time Tonelli–Shanks with a fixed trip count: every step runs
+    for every lane and a mask keeps or drops its result (cf. the p224 field
+    sqrt, k256 scalar.rs:290-327). The inner squarings that tpu_ecc masks
+    by its public loop counters (j < i - 2) are left out here, which gives
+    the same limbs."""
+    s = x.spec
+    p = s.p
+    if p % 4 == 3:
+        r = fpow_const(x, (p + 1) // 4)
+        return r, feq(fsquare(r), x)
+
+    q, s2, znr = _ts_constants(s)
+    x = _steady(x)
+    c = _steady(fe_from_int(s, pow(znr, q, p), x.batch_shape, x.device))
+    t = fpow_const(x, q)                  # order divides 2^(s2-1) for squares
+    r = fpow_const(x, (q + 1) // 2)
+    one = fone(s, x.batch_shape, x.device)
+    for k in range(s2 - 1):
+        i = s2 - k                        # i runs s2 .. 2
+        b = t                             # b = t^(2^(i-2))
+        for _ in range(i - 2):
+            b = _steady(fsquare(b))
+        flag = ~feq(b, one)
+        c2 = _steady(fsquare(c))
+        r = fselect(flag, _steady(fmul(r, c)), r)
+        t = fselect(flag, _steady(fmul(t, c2)), t)
+        c = c2
+    return r, feq(fsquare(r), x)

@@ -6,6 +6,7 @@ the plain PyTorch twin beside each.
 | `padd_chain` | csrc/padd_chain.cu | `padd_chain_call` :426                   |
 | `pow`        | csrc/pow.cu        | `pow_call` :1140                         |
 | `ladder`     | csrc/ladder.cu     | `ladder_call` :887                       |
+| `genmul`     | csrc/genmul.cu     | `genmul_call` :1048                      |
 
 Each kernel runs one thread per batch lane over limb-major [.., n, B] uint32
 arrays, and calls straight-line field and point functions that ops/kfe.py
@@ -61,6 +62,9 @@ KERNELS = {
     "ladder": ("ladder.cu", ("padd", "pdouble", "fp_neg", "fp_mul_beta"),
                "ladder_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
                "tpu_ecc/ops/pallas_kernels.py:887"),
+    "genmul": ("genmul.cu", ("padd_mixed", "fp_neg"), "genmul_launch",
+               [_VP, _VP, _VP, _VP, _I, _I, _VP],
+               "tpu_ecc/ops/pallas_kernels.py:1048"),
 }
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -329,6 +333,46 @@ def ladder_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# genmul
+# ---------------------------------------------------------------------------
+
+def genmul(curve: CurveSpec, tbl: torch.Tensor, mag: torch.Tensor,
+           neg: torch.Tensor) -> torch.Tensor:
+    """Constant-time fixed-base comb: the affine table tbl [nw, 9, 2, n]
+    (row j holds d * 16^j * G for d = 0..8, entry 0 a dummy), digit
+    magnitudes mag [nw, B] in [0, 8] and sign masks neg [nw, B], LSB window
+    first -> steady [3, n, B] limbs of sum_j d_j 16^j G."""
+    if mag.device.type == "cpu":
+        return genmul_plain(curve, tbl, mag, neg)
+    nw, B = mag.shape
+    n = curve.field.n_limbs
+    _check(tbl, (nw, TBL, 2, n), "genmul tbl")
+    _check(mag, (nw, B), "genmul mag")
+    _check(neg, (nw, B), "genmul neg")
+    t32, m32, g32 = _u32(tbl), _u32(mag), _u32(neg)
+    out = torch.empty((3, n, B), dtype=torch.int32, device=mag.device)
+    _launch("genmul", curve, mag.device, t32.data_ptr(), m32.data_ptr(),
+            g32.data_ptr(), out.data_ptr(), nw, B)
+    return _from_u32(out)
+
+
+def genmul_plain(curve: CurveSpec, tbl: torch.Tensor, mag: torch.Tensor,
+                 neg: torch.Tensor) -> torch.Tensor:
+    from .scalarmul import _ct_lookup   # scalarmul imports this module
+    f = curve.field
+    n = f.n_limbs
+    acc = P.identity(curve, tuple(mag.shape[1:]), mag.device)
+    for w in range(mag.shape[0]):
+        m = mag[w]
+        sel = _ct_lookup(tbl[w].reshape(TBL, 2, n, 1), m)     # [2, n, B]
+        y = F.fe_steady(f, sel[1])
+        y = F.fselect(neg[w] != 0, F.fsteady(F.fneg(y)), y)
+        new = P.steady(P.padd_mixed(acc, F.fe_steady(f, sel[0]), y))
+        acc = P.pselect(m == 0, acc, new)      # entry 0 is the dummy
+    return P.point_limbs(acc)
+
+
+# ---------------------------------------------------------------------------
 # work per call, for the kernels' bounds
 # ---------------------------------------------------------------------------
 
@@ -347,7 +391,8 @@ def _total(*terms) -> dict:
 
 def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
     """(32-bit integer instructions by class, bytes that must move) of one
-    launch: padd_chain(repeat=), pow(field=0|1, e=), ladder(T=, nw=, glv=)."""
+    launch: padd_chain(repeat=), pow(field=0|1, e=), ladder(T=, nw=, glv=),
+    genmul(nw=)."""
     c = op_counts(curve)
     n = curve.field.n_limbs
     pn = 3 * n
@@ -372,4 +417,13 @@ def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
                      (nw * H * B, select), (nw * H * B, c["fp_neg"]),
                      (nw * T * B if glv else 0, c["fp_mul_beta"]))
         return ops, (T * pn + 2 * nw * H + pn) * 4 * B
+    if name == "genmul":
+        nw = kw["nw"]
+        # per window: a compare and a select of 2n words for each of the 9
+        # entries, the select of n words of y, and the compare and select
+        # of 3n words that keep acc on a zero digit
+        select = {"imad": 0, "alu": TBL * (2 * n + 1) + n + pn + 1, "other": 0}
+        ops = _total((nw * B, c["padd_mixed"]), (nw * B, c["fp_neg"]),
+                     (nw * B, select))
+        return ops, nw * TBL * 2 * n * 4 + (2 * nw + pn) * 4 * B
     raise KeyError(name)

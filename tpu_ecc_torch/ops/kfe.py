@@ -21,7 +21,7 @@ Python-int constants. So the same ledger code here runs on two limb types:
 
 Each generated function takes steady inputs and returns `ksteady` outputs,
 exactly as tpu_ecc's Pallas bodies trace them (pallas_kernels.py:56-104,
-:440-447, :955-998, :1174-1205).
+:173-197, :440-447, :955-998, :1094-1102, :1174-1205).
 """
 
 from __future__ import annotations
@@ -628,6 +628,31 @@ def _kadd_a0(c, X1, Y1, Z1, X2, Y2, Z2):
     return X3, Y3, Z3
 
 
+def _kadd_mixed_a0(c, X1, Y1, Z1, x2, y2):
+    """RCB 2015 Algorithm 8 (a = 0, Z2 = 1)."""
+    t0 = X1 * x2
+    t1 = Y1 * y2
+    t3 = (x2 + y2) * (X1 + Y1)
+    t3 = t3 - (t0 + t1)
+    t4 = y2 * Z1 + Y1
+    Y3 = x2 * Z1 + X1
+    t0 = t0 + t0 + t0
+    t2 = _b3_mul_k(c, Z1)
+    Z3 = t1 + t2
+    t1 = t1 - t2
+    Y3 = _b3_mul_k(c, Y3)
+    X3 = t4 * Y3
+    t2 = t3 * t1
+    X3 = t2 - X3
+    Y3 = Y3 * t0
+    t1 = t1 * Z3
+    Y3 = t1 + Y3
+    t0 = t0 * t3
+    Z3 = Z3 * t4
+    Z3 = Z3 + t0
+    return X3, Y3, Z3
+
+
 def _kdouble_a0(c, X, Y, Z):
     """RCB 2015 Algorithm 9 (a = 0)."""
     t0 = Y * Y
@@ -652,6 +677,7 @@ def _kdouble_a0(c, X, Y, Z):
 
 
 _KADD = {"a0": _kadd_a0}
+_KADD_MIXED = {"a0": _kadd_mixed_a0}
 _KDOUBLE = {"a0": _kdouble_a0}
 
 
@@ -680,6 +706,14 @@ def padd(curve, a: list, b: list) -> list:
     f = curve.field
     return _flat_steady(_formula(_KADD, curve)(curve, *_point(f, a),
                                                *_point(f, b)))
+
+
+def padd_mixed(curve, a: list, x: list, y: list) -> list:
+    """Complete mixed add of a steady point (flat [3n]) and a steady affine
+    point (x [n], y [n])."""
+    f = curve.field
+    return _flat_steady(_formula(_KADD_MIXED, curve)(
+        curve, *_point(f, a), kfe_from_rows(f, x), kfe_from_rows(f, y)))
 
 
 def pdouble(curve, a: list) -> list:
@@ -766,6 +800,8 @@ def function_table(curve) -> dict:
     nf, ns = f.n_limbs, s.n_limbs
     table = {
         "padd": ([("a", 3 * nf), ("b", 3 * nf)], lambda a, b: padd(curve, a, b)),
+        "padd_mixed": ([("a", 3 * nf), ("x", nf), ("y", nf)],
+                       lambda a, x, y: padd_mixed(curve, a, x, y)),
         "pdouble": ([("a", 3 * nf)], lambda a: pdouble(curve, a)),
         "fp_mul": ([("x", nf), ("y", nf)], lambda x, y: fe_mul(f, x, y)),
         "fp_sqr": ([("x", nf)], lambda x: fe_sqr(f, x)),

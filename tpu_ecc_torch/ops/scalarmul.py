@@ -8,23 +8,29 @@ The torch port of tpu_ecc/ops/scalarmul.py's variable-base side:
 - `scalar_mul` and `lincomb` (shared-doubling Straus, the ECDSA-verify hot
   path, k256/src/arithmetic/mul.rs:342-393);
 - the GLV split for secp256k1 (`glv_decompose_device`, `lincomb_glv`), which
-  halves the window count.
+  halves the window count;
+- the fixed-base comb k*G (`mul_by_generator`, the sign hot loop) over
+  precomputed affine tables d * 16^j * G, and constant-time public-key
+  derivation on it (`derive_public_batch`).
 
-Every ladder runs on ops/kernels.py's `ladder`: the CUDA kernel for a CUDA
-tensor, its plain twin for a CPU tensor. The select of a table entry is a
-masked select over all 9 entries, never an index by digit, so secret scalars
-are safe. Scalars enter as canonical little-endian limb tensors in the scalar
-field's limb layout (never Montgomery-domain), packed by `pack_scalars`.
+Every ladder runs on ops/kernels.py's `ladder` and every comb on its
+`genmul`: the CUDA kernel for a CUDA tensor, its plain twin for a CPU
+tensor. The select of a table entry is a masked select over all 9 entries,
+never an index by digit, so secret scalars are safe. Scalars enter as
+canonical little-endian limb tensors in the scalar field's limb layout
+(never Montgomery-domain), packed by `pack_scalars`.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..curves.specs import CurveSpec
+from ..utils import ec_host
 from ..utils.bigint import int_to_limbs, ints_to_limbs_np
 from . import fe as F
 from . import kernels
@@ -149,6 +155,87 @@ def lincomb(terms, scalar_bits=None) -> Point:
     """sum(k_i * P_i) with shared doublings and signed windows; terms =
     [(Point, k_limbs), ...]. scalar_bits bounds the window count."""
     return _ladder(terms, scalar_bits=scalar_bits)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base: precomputed comb tables for the generator
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _gen_tables_np(curve: CurveSpec):
+    """T[j][d] = affine(d * 16^j * G) for nw+1 signed windows, d in 0..8
+    (host precompute; entry 0 is a dummy (gx, gy) masked out at lookup
+    time; the extra window absorbs the signed-recode carry). Returns
+    (x_tbl, y_tbl) as uint32[nw+1, 9, n_limbs]."""
+    f = curve.field
+    nw = num_windows(curve) + 1
+    G = ec_host.aff_generator(curve)
+    xs = np.zeros((nw, 9, f.n_limbs), np.uint32)
+    ys = np.zeros((nw, 9, f.n_limbs), np.uint32)
+    base = G
+    for j in range(nw):
+        acc = None
+        for d in range(9):
+            pt = acc if acc is not None else base  # d=0 dummy: use base point
+            xs[j, d] = int_to_limbs(f.encode_int(pt[0]), f.n_limbs, f.limb_bits)
+            ys[j, d] = int_to_limbs(f.encode_int(pt[1]), f.n_limbs, f.limb_bits)
+            acc = ec_host.aff_add(curve, acc, base)
+        base = ec_host.aff_mul(curve, 16, base)
+    return xs, ys
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_table(curve: CurveSpec, device: torch.device) -> torch.Tensor:
+    """The comb table as the `genmul` kernel takes it: [nw+1, 9, 2, n]
+    limbs on `device`."""
+    xs, ys = _gen_tables_np(curve)
+    return torch.from_numpy(np.stack([xs, ys], axis=2).astype(np.int64)).to(device)
+
+
+def mul_by_generator(curve: CurveSpec, k_limbs: torch.Tensor) -> Point:
+    """Constant-time k*G via signed comb tables (9 entries per window):
+    nw+1 mixed adds, no doublings, with a conditional y negation per window
+    (Radix16 signed digits, cf. k256/src/arithmetic/mul.rs:395-439), on the
+    `genmul` kernel (its plain twin for a CPU tensor)."""
+    mag, neg = signed_digits(curve, k_limbs)    # [nw+1 (msb first), *b]
+    out = kernels.genmul(curve, _gen_table(curve, k_limbs.device),
+                         mag.flip(0), neg.flip(0))   # windows j = 0..nw
+    return P.point_from_limbs(curve, out)
+
+
+# ---------------------------------------------------------------------------
+# constant-time public-key derivation (SecretKey::public_key analogue)
+# ---------------------------------------------------------------------------
+
+def _derive_public_core(curve: CurveSpec, buf: torch.Tensor) -> torch.Tensor:
+    """buf: secret scalars as 32-bit words [nws, B] on the device -> x | y
+    words [2 * nwf, B]."""
+    s = curve.scalar
+    d_raw = F.relimb(buf, 32, s.limb_bits, s.n_limbs)
+    x, y, _ = P.to_affine(mul_by_generator(curve, d_raw))
+    return torch.cat([F.fe_to_words(x), F.fe_to_words(y)], 0)
+
+
+def derive_public_batch(curve: CurveSpec, d_ints, device=None) -> list:
+    """Constant-time public keys [(x, y)] = [d*G] for secret scalars d.
+
+    The only path from a secret scalar to its public point: the device comb
+    (`mul_by_generator`: masked selects, no secret-dependent control flow),
+    as the reference's constant-time SecretKey::public_key
+    (k256/src/arithmetic/mul.rs:424-439). The host double-and-add
+    (`ec_host.aff_mul`) branches on every bit and never sees a secret. Runs
+    on the card unless `device` names another; one packed buffer each way."""
+    dev = resolve_device(device)
+    words = F.words_from_ints([d % curve.n for d in d_ints], curve.scalar.bits)
+    buf = torch.from_numpy(words.astype(np.int64)).to(dev)
+    packed = _derive_public_core(curve, buf).cpu().numpy()
+    nwf = (curve.field.bits + 31) // 32
+    return list(zip(F.ints_from_words(packed[:nwf]), F.ints_from_words(packed[nwf:])))
+
+
+def derive_public(curve: CurveSpec, d: int, device=None) -> tuple:
+    """One key's constant-time public-key derivation (a batch of one)."""
+    return derive_public_batch(curve, [d], device)[0]
 
 
 # ---------------------------------------------------------------------------
