@@ -27,7 +27,18 @@
 5. The headline: padd_chain adds/s at B = 8192, repeat 16, by chain-length
    differencing (the extra work of a longer chain over its extra time), and
    a check of the chain's result against the host oracle.
-6. Prints the card's name and power limit, a `kernels` JSON line (each
+6. MSM: 2^20 points P_i = a_i*G made on the card (`derive_public_batch`)
+   and full-width k_i, from a seed. Holds the four Pippenger phase kernels
+   against their twins on the card at the shapes the first group of
+   windows gives them (segscan signed and unsigned, fixup, bucket_reduce
+   with and without drop0, horner on the 19 window sums). Then `msm()`
+   (signed, w = 14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one
+   host `aff_mul`, with every phase kernel launched; the device core
+   (packed tensors in, point out, closed by a synchronize) runs 5 times. A
+   Straus `msm()` at 4096 points is checked the same way, with the ladder
+   launched. Last, one core run under torch.profiler gives the device time
+   of each step of msm_pippenger (its `msm/<step>` ranges).
+7. Prints the card's name and power limit, a `kernels` JSON line (each
    kernel's launches on the main path, its error against its twin, its time,
    its twin's time and its bound), and last a JSON line with the device.
 
@@ -58,6 +69,10 @@ VERIFY_RUNS = 7
 RUNS = 7          # sign, derive and recover
 SIGNS = 8192
 SAMPLE = 256
+MSM_POINTS = 1 << 20
+MSM_RUNS = 5
+MSM_W, MSM_LANES = 14, 8192       # msm()'s defaults at 2^20 points
+STRAUS_POINTS = 4096
 
 
 def smi(query: str) -> str:
@@ -165,6 +180,49 @@ def measure_runs(label: str, fn, count: int, runs: int, must_launch, want=None):
     return first, rates, float(np.median(rates)), launches
 
 
+def msm_phase_ms(core) -> dict:
+    """One run of core() (the MSM core) under torch.profiler -> {step: ms}
+    for each `msm/<step>` range of msm_pippenger (parallel/msm.py PHASES),
+    summed over the groups of windows: the range's span on the card's
+    timeline ("span") and the device time of the torch operators' kernels
+    inside it ("torch_kernels"; the hand-written kernels, launched through
+    ctypes, carry no link to a range); beside them the device time of each
+    hand-written kernel by its name ("by_name") and the device's busy time
+    ("busy")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.parallel import msm as M
+
+    def dev_us(e, total):
+        names = ("device_time_total", "cuda_time_total") if total else (
+            "self_device_time_total", "self_cuda_time_total")
+        return next((getattr(e, n) for n in names if hasattr(e, n)), 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        core()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {"span": {}, "torch_kernels": {p: 0.0 for p in M.PHASES}, "by_name": {},
+           "busy": 0.0}
+    for e in prof.key_averages():
+        step = e.key.removeprefix("msm/")
+        if step in M.PHASES and e.key != step:
+            if e.device_type == cuda:
+                out["span"][step] = dev_us(e, True) / 1e3
+            else:
+                out["torch_kernels"][step] += dev_us(e, True) / 1e3
+        elif e.device_type == cuda and dev_us(e, False) > 0:
+            out["busy"] += dev_us(e, False) / 1e3
+            name = e.key.removeprefix("void ").split("(")[0].split("<")[0]
+            name = name.removesuffix("_kernel")
+            for kname in K.KERNELS:
+                if name == kname or name.startswith(f"{kname}_"):
+                    out["by_name"][kname] = out["by_name"].get(kname, 0.0) + dev_us(e, False) / 1e3
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -176,6 +234,7 @@ def main() -> int:
     from tpu_ecc_torch.ops import points as P
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.protocols import ecdsa as E
+    from tpu_ecc_torch.parallel import msm as M
     from tpu_ecc_torch.protocols import rfc6979
     from tpu_ecc_torch.utils import ec_host as H
 
@@ -199,19 +258,25 @@ def main() -> int:
     # -- 2. each kernel against its plain twin, at the main path's shapes ---
     rows = {}
 
-    def hold(name, label, kern, plain, reps, **work):
+    def hold(name, label, kern, plain, reps, B=None, **work):
+        """kern() against plain() (a tensor or a tuple of them), then kern's
+        ms over `reps` runs and its bound from K.work (B: the lanes, by
+        default the output's last axis)."""
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out_p = plain()
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
-        err = int((out_k - out_p).abs().max())
-        if err != 0 or out_k.shape != out_p.shape:
+        outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(outs_k, outs_p))
+        if err != 0 or [a.shape for a in outs_k] != [b.shape for b in outs_p]:
             raise AssertionError(f"{name} ({label}) differs from its plain twin: "
                                  f"max abs limb difference {err}")
         ms = _time_ms(kern, reps)
-        ops, nbytes = K.work(name, curve, out_k.shape[-1], **work)
+        ops, nbytes = K.work(name, curve, outs_k[0].shape[-1] if B is None else B, **work)
         bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz)
         bound_ms = 1e3 * max(bytes_s, ops_s)
         by = "bytes" if bytes_s > ops_s else "operations"
@@ -317,7 +382,7 @@ def main() -> int:
     b = P.point_from_limbs(curve, b_l)
     K.reset_launches()
     out = P.point_limbs(P.padd_chain(a, b, repeat))
-    rates = []
+    add_rates = []
     for _ in range(3):
         times = []
         for count in (16, 80):
@@ -328,9 +393,9 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         if times[1] > times[0]:
-            rates.append((80 - 16) * repeat * B / (times[1] - times[0]))
+            add_rates.append((80 - 16) * repeat * B / (times[1] - times[0]))
     chain_launches = K.launches["padd_chain"]
-    if chain_launches <= 0 or not rates:
+    if chain_launches <= 0 or not add_rates:
         raise AssertionError("the headline chain did not run")
     total = 1 + 3 * (16 + 80)
     ax, ay, _ = P.to_affine(P.point_from_limbs(curve, out[:, :, :8]))
@@ -339,22 +404,133 @@ def main() -> int:
         want = H.aff_add(curve, a_pts[i], H.aff_mul(curve, total * repeat, b_pts[i]))
         if (x[i], y[i]) != want:
             raise AssertionError(f"padd_chain lane {i} disagrees with the host oracle")
-    print(f"  {max(rates):.6g} adds/s (best of {[f'{r:.6g}' for r in rates]}); "
+    print(f"  {max(add_rates):.6g} adds/s (best of {[f'{r:.6g}' for r in add_rates]}); "
           f"result checked against the host oracle")
     torch.cuda.synchronize()
 
-    # -- 6. the record --------------------------------------------------------
+    # -- 6. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
+    print(f"msm: secp256k1, {MSM_POINTS} points a_i*G made on the card, full-width k_i")
+    t = time.perf_counter()
+    raw = np.random.default_rng(8).bytes(64 * MSM_POINTS)
+    a_i = [int.from_bytes(raw[64 * i:64 * i + 32], "big") % (curve.n - 1) + 1
+           for i in range(MSM_POINTS)]
+    k_i = [int.from_bytes(raw[64 * i + 32:64 * i + 64], "big") % curve.n
+           for i in range(MSM_POINTS)]
+    del raw
+    pts = SM.derive_public_batch(curve, a_i)
+    want = H.aff_mul(curve, sum(a * k for a, k in zip(a_i, k_i)) % curve.n, G)
+    print(f"  points, scalars and the host check made in {time.perf_counter() - t:.1f} s")
+
+    f = curve.field
+    packed = M.pack(curve, pts, k_i, MSM_LANES, dev)
+    xs, ys = F.fe_steady(f, packed[0]), F.fe_steady(f, packed[1])
+    payload, keys, negs, nbuck = M.pippenger_inputs(curve, xs, ys, packed[2], packed[3],
+                                                    MSM_W, signed=True)
+    per = M.GROUP_BYTES // payload[:1].nbytes // MSM_POINTS
+    skey, key2, val2, neg2 = M.sorted_windows(payload, keys[:per], negs[:per], MSM_LANES)
+    C, lanes = key2.shape[0], key2[0].numel()
+    seg_adds = int((key2[1:] == key2[:-1]).sum() + (key2[0] == nbuck).sum())
+    print(f"hold: the Pippenger phases at the first group of {per} windows "
+          f"(C = {C}, L = {MSM_LANES}, nbuck = {nbuck})")
+    hold("segscan", f"signed C={C} lanes={per}x{MSM_LANES}",
+         lambda: K.segscan(curve, key2, val2, nbuck, neg2),
+         lambda: K.segscan_plain(curve, key2, val2, nbuck, neg2), 3, B=lanes,
+         C=C, adds=seg_adds, signed=True)
+    hold("segscan", f"unsigned C=16 lanes={per}x{MSM_LANES}",
+         lambda: K.segscan(curve, key2[:16], val2[:16], nbuck),
+         lambda: K.segscan_plain(curve, key2[:16], val2[:16], nbuck), 3, B=lanes,
+         C=16, adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
+         signed=False)
+    scanned, last_key, tail, lead = K.segscan(curve, key2, val2, nbuck, neg2)
+    fix_adds = sum(int((last_key[:, s:] == last_key[:, :-s]).sum())
+                   for s in (1 << i for i in range(MSM_LANES.bit_length() - 1)))
+    hold("fixup", f"lanes={per}x{MSM_LANES}",
+         lambda: K.fixup(curve, tail, last_key, key2[0], lead),
+         lambda: K.fixup_plain(curve, tail, last_key, key2[0], lead), 5, B=lanes,
+         adds=fix_adds)
+    fixed = K.fixup(curve, tail, last_key, key2[0], lead)
+    buckets = M.bucket_lookup(curve, skey, scanned, fixed, key2[0], nbuck)
+    for drop0 in (False, True):          # False: the signed path's
+        hold("bucket_reduce", f"nbuck={nbuck} windows={per} drop0={drop0}",
+             lambda: K.bucket_reduce(curve, buckets, drop0),
+             lambda: K.bucket_reduce_plain(curve, buckets, drop0), 5, B=nbuck,
+             groups=per)
+    s_all = torch.cat([M.window_sums(curve, payload, keys[j:j + per], negs[j:j + per],
+                                     MSM_LANES, nbuck, True)
+                       for j in range(0, keys.shape[0], per)], -1).permute(2, 0, 1)
+    nw = s_all.shape[0]
+    hold("horner", f"w={MSM_W} nw={nw}", lambda: K.horner(curve, s_all, MSM_W),
+         lambda: K.horner_plain(curve, s_all, MSM_W), 5, B=1, nw=nw, w=MSM_W)
+    ops, _ = K.work("horner", curve, 1, nw=nw, w=MSM_W)
+    rows["horner"]["thread_bound_ms"] = 1e3 * sum(ops.values()) / clock_hz
+    print(f"  horner's one-thread bound (one instruction per clock): "
+          f"{rows['horner']['thread_bound_ms']:.4f} ms")
+    del skey, key2, val2, neg2, scanned, fixed, payload
+    torch.cuda.synchronize()
+
+    print(f"msm(): {MSM_POINTS} points, signed w={MSM_W}, {MSM_LANES} lanes")
+    K.reset_launches()
+    t = time.perf_counter()
+    got = M.msm(curve, pts, k_i)
+    msm_wall = time.perf_counter() - t
+    msm_launches = dict(K.launches)
+    if got != want:
+        raise AssertionError("msm() disagrees with the host check")
+    for name in ("segscan", "fixup", "bucket_reduce", "horner"):
+        if msm_launches[name] <= 0:
+            raise AssertionError(f"msm() did not launch the {name} kernel")
+    print(f"  equals (sum a_i*k_i mod n)*G; whole msm() {msm_wall:.3f} s; launches "
+          f"per MSM {msm_launches}")
+
+    def core():
+        return M.msm_limbs(curve, *packed, "pippenger", w=MSM_W, lanes=MSM_LANES,
+                           signed=True)
+
+    first = core()
+    rates = []
+    for _ in range(MSM_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = core()
+        torch.cuda.synchronize()
+        rates.append(MSM_POINTS / (time.perf_counter() - t))
+        if not torch.equal(out, first):
+            raise AssertionError("the MSM core differs between runs")
+    msm_rate = float(np.median(rates))
+    print(f"  device core: points/s median {msm_rate:.1f}, runs "
+          f"{[round(r, 1) for r in rates]}")
+
+    print(f"msm(): {STRAUS_POINTS} points (Straus)")
+    want_s = H.aff_mul(curve, sum(a * k for a, k in zip(a_i[:STRAUS_POINTS],
+                                                        k_i[:STRAUS_POINTS])) % curve.n, G)
+    K.reset_launches()
+    t = time.perf_counter()
+    got = M.msm(curve, pts[:STRAUS_POINTS], k_i[:STRAUS_POINTS])
+    straus_wall = time.perf_counter() - t
+    if got != want_s:
+        raise AssertionError("the Straus msm() disagrees with the host check")
+    if K.launches["ladder"] <= 0:
+        raise AssertionError("the Straus msm() did not launch the ladder kernel")
+    print(f"  equals the host check; {straus_wall:.3f} s; launches {dict(K.launches)}")
+    torch.cuda.synchronize()
+    phases = msm_phase_ms(core)        # last: a profiler run leaves overhead behind
+    print(f"  device core by step (one profiled run), ms: {json.dumps(phases)}")
+
+    # -- 7. the record --------------------------------------------------------
     launches = {"padd_chain": chain_launches, "pow": verify_launches["pow"],
-                "ladder": verify_launches["ladder"], "genmul": sign_launches["genmul"]}
+                "ladder": verify_launches["ladder"], "genmul": sign_launches["genmul"],
+                **{name: msm_launches[name]
+                   for name in ("segscan", "fixup", "bucket_reduce", "horner")}}
     kernels = []
-    for name in ("padd_chain", "pow", "ladder", "genmul"):
+    for name in launches:
         src, _, _, _, replaces = K.KERNELS[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
                         "launches": launches[name], **rows[name], "library_ms": None})
     print(f"slice: {verify_rate:.1f} verifies/s (median of {VERIFY_RUNS}), "
           f"{sign_rate:.1f} signs/s, {derive_rate:.1f} derives/s, {recover_rate:.1f} "
-          f"recovers/s (medians of {RUNS}), {max(rates):.6g} adds/s")
+          f"recovers/s (medians of {RUNS}), {max(add_rates):.6g} adds/s, "
+          f"{msm_rate:.1f} MSM points/s (median of {MSM_RUNS})")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ from tpu_ecc_torch import interop
 from tpu_ecc_torch.curves import specs as TS
 from tpu_ecc_torch.ops import fe as TF
 
-FIELDS = [("secp256k1", "field"), ("secp256k1", "scalar"), ("p256", "field")]
+FIELDS = [("secp256k1", "field"), ("secp256k1", "scalar"), ("p256", "field"),
+          ("p521", "field")]           # 41 limbs: 81 product columns
 B = 8
 
 
@@ -159,3 +160,53 @@ def test_carry_scan_equals_sequential_chain(bound):
         c = t >> b
     np.testing.assert_array_equal(out.numpy(), np.stack(want))
     np.testing.assert_array_equal(carry.numpy(), c)
+
+
+def _ripple_cummax(x, mask):
+    """The ripple by its definition, an independent reference: a limb takes
+    a carry exactly when the nearest limb below it that is not equal to mask
+    exceeds mask. x [n, B] <= mask + 1 -> (limbs <= mask, carry-out)."""
+    idx = torch.arange(x.shape[0])[:, None]
+    last = torch.where(x != mask, idx, -1).cummax(0).values
+    gen = (x > mask).gather(0, last.clamp(min=0)) & (last >= 0)   # carry out of limb i
+    out = x.clone()
+    out[1:] += gen[:-1]
+    return out & mask, gen[-1].to(x.dtype)
+
+
+@pytest.mark.parametrize("n", [20, 39, 62, 63, 82, 130])
+def test_ripple_cummax_equals_ripple_bits(n):
+    """The carry-lookahead (integer additions of bit masks, 62 limbs at a
+    time) resolves the ripple as its cummax definition does, long runs of
+    mask limbs across the chunk boundaries and the carry out of the top
+    included; P-521's product has 81 rows."""
+    mask = 8191
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, mask + 2, (n, 256), dtype=np.int64)
+    x[rng.random(x.shape) < 0.8] = mask
+    x[:, :4] = mask
+    x[0, :2] = mask + 1
+    x[-1, 2] = mask + 1
+    x[:, 5] = mask
+    x[min(61, n - 1), 5] = mask + 1              # a carry from the top of a chunk
+    carry = torch.full((x.shape[1],), 7, dtype=torch.int64)
+    want, want_c = _ripple_cummax(torch.from_numpy(x), mask)
+    got, got_c = TF._ripple(torch.from_numpy(x.copy()), carry, mask)
+    assert torch.equal(got, want) and torch.equal(got_c, carry + want_c)
+    assert int(got_c[0]) == 8 and int(got_c[3]) == 7
+    assert int(got[min(62, n - 1), 5]) == 0
+
+
+def test_diagonals_skew_equals_index_add():
+    """The convolution's anti-diagonal sums (index_add_) equal the skew
+    trick's, an independent reference: pad each row of [n, m, *b] to m + n,
+    flatten, drop the last n entries and re-view as [n, m + n - 1]."""
+    rng = np.random.default_rng(5)
+    for n, m in ((20, 20), (13, 20), (41, 41)):
+        x = torch.from_numpy(rng.integers(0, 1 << 13, (n, 3, 64), dtype=np.int64))
+        y = torch.from_numpy(rng.integers(0, 1 << 13, (m, 3, 64), dtype=np.int64))
+        prod = x[:, None] * y[None, :]
+        skew = torch.cat([prod, prod.new_zeros((n, n, 3, 64))], 1)
+        skew = skew.reshape((n * (m + n), 3, 64))[: n * (m + n - 1)]
+        want = skew.reshape((n, m + n - 1, 3, 64)).sum(0)
+        assert torch.equal(TF._conv_arr(x, y), want)

@@ -81,4 +81,4 @@ def test_scan_sees_the_package():
     assert {"tpu_ecc_torch/ops/fe.py", "tpu_ecc_torch/ops/kfe.py",
             "tpu_ecc_torch/ops/kernels.py", "tpu_ecc_torch/protocols/ecdsa.py",
             "tpu_ecc_torch/protocols/rfc6979.py", "tpu_ecc_torch/native/__init__.py",
-            "chip_smoke.py"} <= names
+            "tpu_ecc_torch/parallel/msm.py", "chip_smoke.py"} <= names

@@ -93,3 +93,79 @@ def test_genmul_matches_plain(dev, k256, b):
     out = kernels.genmul(k256, tbl, mag, neg)
     torch.cuda.synchronize()
     assert torch.equal(out, kernels.genmul_plain(k256, tbl, mag, neg))
+
+
+def _window_group(curve, dev, N, L, w, signed, windows):
+    """The first `windows` windows of a Pippenger MSM over N steady points
+    (16 distinct, tiled) with random full-width scalars, sorted and laid out
+    as msm_pippenger gives them to the phase kernels."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import msm as M
+
+    pl = _points(curve, 20, N, dev)
+    rng = np.random.default_rng(N + w)
+    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(N - 2)]
+    f = curve.field
+    payload, keys, negs, nbuck = M.pippenger_inputs(
+        curve, F.fe_steady(f, pl[0]), F.fe_steady(f, pl[1]),
+        torch.zeros(N, dtype=torch.bool, device=dev), SM.pack_scalars(curve, ks, dev),
+        w, signed=signed)
+    negs = None if negs is None else negs[:windows]
+    return M.sorted_windows(payload, keys[:windows], negs, L), nbuck
+
+
+# (N, L, w, windows): a small shape and a path-like one (8192 lanes and, with
+# signed digits at w = 14, 8192 buckets)
+SHAPES = [(512, 32, 8, 2), (1 << 17, 8192, 14, 2)]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=["small", "path"])
+def test_msm_phases_match_plain(dev, k256, shape, signed):
+    """segscan, fixup and bucket_reduce on a real sorted window group, each
+    against its twin on the same inputs."""
+    from tpu_ecc_torch.parallel import msm as M
+
+    N, L, w, windows = shape
+    (skey, key2, val2, neg2), nbuck = _window_group(k256, dev, N, L, w, signed, windows)
+    got = kernels.segscan(k256, key2, val2, nbuck, neg2)
+    torch.cuda.synchronize()
+    want = kernels.segscan_plain(k256, key2, val2, nbuck, neg2)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    scanned, last_key, tail, lead = want
+    fixed = kernels.fixup(k256, tail, last_key, key2[0], lead)
+    torch.cuda.synchronize()
+    assert torch.equal(fixed, kernels.fixup_plain(k256, tail, last_key, key2[0], lead))
+    buckets = M.bucket_lookup(k256, skey, scanned, fixed, key2[0], nbuck)
+    for drop0 in (False, True):
+        out = kernels.bucket_reduce(k256, buckets, drop0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, kernels.bucket_reduce_plain(k256, buckets, drop0))
+
+
+def test_horner_matches_plain(dev, k256):
+    """w = 14 over 19 window sums, MSB first (the signed 2^20-point MSM)."""
+    s_all = _points(k256, 21, 19, dev).permute(2, 0, 1).contiguous()
+    out = kernels.horner(k256, s_all, 14)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.horner_plain(k256, s_all, 14))
+
+
+@pytest.mark.parametrize("n_points", [1 << 15, 4096])
+def test_msm_on_the_card_equals_host(dev, k256, n_points):
+    """msm() on the card (Pippenger from 2^14 points, Straus below) against
+    (sum a_i*k_i mod n)*G for points a_i*G."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import msm as M
+
+    rng = np.random.default_rng(n_points)
+    a = [int.from_bytes(rng.bytes(32), "big") % (k256.n - 1) + 1 for _ in range(n_points)]
+    k = [int.from_bytes(rng.bytes(32), "big") % k256.n for _ in range(n_points)]
+    pts = SM.derive_public_batch(k256, a)
+    want = ec_host.aff_mul(k256, sum(x * y for x, y in zip(a, k)) % k256.n,
+                           ec_host.aff_generator(k256))
+    kernels.reset_launches()
+    assert M.msm(k256, pts, k) == want
+    used = ("segscan", "fixup", "bucket_reduce", "horner") if n_points >= 1 << 14 else ("ladder",)
+    assert all(kernels.launches[name] > 0 for name in used)

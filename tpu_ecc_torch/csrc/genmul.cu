@@ -78,10 +78,12 @@ __global__ void genmul_kernel(const uint32_t* __restrict__ tbl,
 // tbl [nw, 9, 2, n] affine table; mag, neg [nw, B] LSB window first;
 // out [3, n, B].
 extern "C" int genmul_launch(const void* tbl, const void* mag, const void* neg,
-                             void* out, int nw, int B, void* stream) {
+                             void* out, int nw, int B, int* launched,
+                             void* stream) {
   genmul_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                   (cudaStream_t)stream>>>(
       (const uint32_t*)tbl, (const uint32_t*)mag, (const uint32_t*)neg,
       (uint32_t*)out, nw, B);
+  *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -113,10 +113,12 @@ __global__ void ladder_kernel(const uint32_t* __restrict__ bases,
 // tbl: scratch of T * 9 * 3n * B words.
 extern "C" int ladder_launch(const void* bases, const void* mag,
                              const void* neg, void* out, void* tbl, int T,
-                             int H, int nw, int glv, int B, void* stream) {
+                             int H, int nw, int glv, int B, int* launched,
+                             void* stream) {
   ladder_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                   (cudaStream_t)stream>>>(
       (const uint32_t*)bases, (const uint32_t*)mag, (const uint32_t*)neg,
       (uint32_t*)out, (uint32_t*)tbl, T, H, nw, glv, B);
+  *launched = 1;
   return (int)cudaGetLastError();
 }

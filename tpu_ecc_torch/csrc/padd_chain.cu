@@ -44,9 +44,11 @@ __global__ void padd_chain_kernel(const uint32_t* __restrict__ a,
 }
 
 extern "C" int padd_chain_launch(const void* a, const void* b, void* out,
-                                 int B, int repeat, void* stream) {
+                                 int B, int repeat, int* launched,
+                                 void* stream) {
   padd_chain_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                       (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, B, repeat);
+  *launched = 1;
   return (int)cudaGetLastError();
 }

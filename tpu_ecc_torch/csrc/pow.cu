@@ -85,7 +85,7 @@ __global__ void pow_kernel(const uint32_t* __restrict__ x,
 // tbl: scratch of 15 * n * B words.
 extern "C" int pow_launch(const void* x, void* out, void* tbl,
                           const void* digits, int ndig, int field, int B,
-                          void* stream) {
+                          int* launched, void* stream) {
   const dim3 grid((B + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if (field == 0)
@@ -96,5 +96,6 @@ extern "C" int pow_launch(const void* x, void* out, void* tbl,
     pow_kernel<FieldN><<<grid, THREADS, 0, st>>>(
         (const uint32_t*)x, (uint32_t*)out, (uint32_t*)tbl,
         (const int32_t*)digits, ndig, B);
+  *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -279,8 +279,7 @@ def _carry_scan(cols: torch.Tensor, bound: int, b: int, mask: int):
     Computed in a few whole-tensor steps, not one per limb: value-preserving
     passes move each limb's bits above b one limb up until every limb is at
     most mask + 1 (the bound says how many passes), then a carry-lookahead
-    resolves the 0/1 ripple: a limb takes a carry exactly when the nearest
-    limb below it that is not equal to mask exceeds mask.
+    (`_ripple`) resolves the 0/1 ripple.
     """
     assert bound + (bound >> b) + 2 < (1 << 32), "carry pass would overflow uint32"
     x = cols.clone()
@@ -291,11 +290,41 @@ def _carry_scan(cols: torch.Tensor, bound: int, b: int, mask: int):
         x &= mask
         x[1:] += hi[:-1]
         bound = mask + (bound >> b)
-    idx = torch.arange(x.shape[0], device=x.device).view(-1, *([1] * (x.ndim - 1)))
-    last = torch.where(x != mask, idx, -1).cummax(0).values
-    gen = (x > mask).gather(0, last.clamp(min=0)) & (last >= 0)   # carry out of limb i
-    x[1:] += gen[:-1]
-    return x & mask, carry + gen[-1]
+    return _ripple(x, carry, mask)
+
+
+_RIPPLE_ROWS = 62
+"""Limbs per integer addition in `_ripple`: the sum of a chunk needs one bit
+more than its limbs, and an int64 holds 63."""
+
+
+def _ripple(x: torch.Tensor, carry: torch.Tensor, mask: int):
+    """Resolve the 0/1 ripple of limbs x <= mask + 1 as integer additions, a
+    bit per limb. Limb i generates a carry where x_i = mask + 1 (g_i) and
+    passes one on where x_i = mask (p_i); the carries into the limbs are
+    those of A + G for the bit masks A = P + G and G, i.e. the bits of
+    S ^ P with S = P + 2G = sum_i s_i 2^i, s_i = max(x_i - mask + 1, 0) in
+    {0, 1, 2} and p_i = s_i & 1. Chunks of `_RIPPLE_ROWS` limbs go bottom
+    up, each taking the carry out of the one below at its bit 0. Returns
+    (limbs <= mask, carry + the carry-out)."""
+    s = (x - (mask - 1)).clamp_(min=0)
+    out, c = [], None
+    for lo in range(0, x.shape[0], _RIPPLE_ROWS):
+        sc = s[lo:lo + _RIPPLE_ROWS]
+        k = sc.shape[0]
+        idx = _row_index(k, sc.ndim, x.device)
+        tot = (sc << idx).sum(0)
+        if c is not None:
+            tot += c
+        out.append((x[lo:lo + k] + (((tot >> idx) ^ sc) & 1)) & mask)
+        c = tot >> k                      # 0 or 1: tot < 2^(k + 1)
+    return (out[0] if len(out) == 1 else torch.cat(out, 0)), carry + c
+
+
+@functools.lru_cache(maxsize=None)
+def _row_index(k: int, ndim: int, device: torch.device) -> torch.Tensor:
+    """0 .. k - 1 as [k, 1, ...] broadcasting over a batch of ndim - 1 axes."""
+    return torch.arange(k, device=device).view(-1, *([1] * (ndim - 1)))
 
 
 def _grow(cols: torch.Tensor, m: int) -> torch.Tensor:
@@ -447,16 +476,21 @@ def fmul_small(x: FE, k: int) -> FE:
 # ---------------------------------------------------------------------------
 
 def _conv_arr(xl: torch.Tensor, yl: torch.Tensor) -> torch.Tensor:
-    """Convolution columns col[k] = sum_{i+j=k} x_i * y_j, as one outer
-    product [n, m, *b] whose anti-diagonals are summed by the skew trick:
-    pad each row to m+n, flatten, drop the last n entries and re-view as
-    [n, m+n-1] — row i lands shifted right by i."""
+    """Convolution columns col[k] = sum_{i+j=k} x_i * y_j: the anti-diagonal
+    sums of one outer product [n, m, *b], one index_add_ of its rows by
+    i + j (integer sums, so exact in any order)."""
     n, m = xl.shape[0], yl.shape[0]
     bshape = torch.broadcast_shapes(xl.shape[1:], yl.shape[1:])
     prod = xl.expand((n, *bshape))[:, None] * yl.expand((m, *bshape))[None, :]
-    skew = torch.cat([prod, prod.new_zeros((n, n, *bshape))], 1)
-    skew = skew.reshape((n * (m + n), *bshape))[: n * (m + n - 1)]
-    return skew.reshape((n, m + n - 1, *bshape)).sum(0)
+    return prod.new_zeros((n + m - 1, *bshape)).index_add_(
+        0, _diagonal_index(n, m, prod.device), prod.reshape((n * m, *bshape)))
+
+
+@functools.lru_cache(maxsize=None)
+def _diagonal_index(n: int, m: int, device: torch.device) -> torch.Tensor:
+    """i + j for the rows of an [n, m] outer product, flattened."""
+    return (torch.arange(n, device=device)[:, None]
+            + torch.arange(m, device=device)[None, :]).reshape(-1)
 
 
 def _mont_reduce(spec: FieldSpec, cols: torch.Tensor, in_vmax: int) -> FE:
@@ -726,6 +760,54 @@ def finv(x: FE) -> FE:
     """Constant-time Fermat inversion x^(p-2); maps 0 -> 0 (callers mask the
     CtOption-none case separately, as with the reference's invert)."""
     return fpow_const(x, x.spec.p - 2)
+
+
+def _associative_scan(combine, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over the last axis with the pairing tree of
+    jax.lax.associative_scan (combine adjacent pairs, scan the half
+    recursively, fill the even slots), so that a combine whose limbs depend
+    on the order of association gives tpu_ecc's limbs."""
+    num = x.shape[-1]
+    if num < 2:
+        return x
+    odd = _associative_scan(combine, combine(x[..., 0:-1:2], x[..., 1::2]))
+    if num % 2 == 0:
+        even = combine(odd[..., :-1], x[..., 2::2])
+    else:
+        even = combine(odd, x[..., 2::2])
+    even = torch.cat([x[..., :1], even], -1)
+    out = torch.empty_like(x)
+    out[..., 0::2] = even
+    out[..., 1::2] = odd
+    return out
+
+
+def fbatch_inv(x: FE) -> FE:
+    """Batched Montgomery-trick inversion over the last batch axis:
+    x_i^-1 = prefix_i * suffix_i * total^-1, with the exclusive prefix and
+    suffix products from two associative scans and one Fermat inversion of
+    the total (BatchInvert, primeorder/src/projective.rs:382-413). Zeros map
+    to zero."""
+    s = x.spec
+    x = _steady(x)
+    zero_mask = fis_zero(x)
+    one = fone(s, x.batch_shape, x.device)
+    x = fselect(zero_mask, one, x)        # mask zeros to 1 (reference :394-399)
+    limbs = x.limbs
+
+    def combine(a, b):
+        return _steady(fmul(fe_steady(s, a), fe_steady(s, b))).limbs
+
+    incl = _associative_scan(combine, limbs)
+    tinv = finv(fe_steady(s, incl[..., -1:]))              # [n, ..., 1]
+    one_col = one.limbs[..., :1].expand(limbs[..., :1].shape)
+    excl_prefix = torch.cat([one_col, incl[..., :-1]], -1)
+    incl_r = _associative_scan(combine, limbs.flip(-1)).flip(-1)
+    excl_suffix = torch.cat([incl_r[..., 1:], one_col], -1)
+    out = fmul(fe_steady(s, excl_prefix), fe_steady(s, excl_suffix))
+    out = _steady(fmul(out, FE(tinv.limbs.expand(limbs.shape), s, s.mask,
+                               s.carried_vmax)))
+    return fselect(zero_mask, fe_zeros(s, x.batch_shape, x.device), out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,6 +7,10 @@ the plain PyTorch twin beside each.
 | `pow`        | csrc/pow.cu        | `pow_call` :1140                         |
 | `ladder`     | csrc/ladder.cu     | `ladder_call` :887                       |
 | `genmul`     | csrc/genmul.cu     | `genmul_call` :1048                      |
+| `segscan`    | csrc/segscan.cu    | `segscan_call` :463                      |
+| `fixup`      | csrc/fixup.cu      | `fixup_call` :647                        |
+| `bucket_reduce` | csrc/bucket_reduce.cu | `bucket_reduce_call` :733             |
+| `horner`     | csrc/horner.cu     | `horner_call` :814                       |
 
 Each kernel runs one thread per batch lane over limb-major [.., n, B] uint32
 arrays, and calls straight-line field and point functions that ops/kfe.py
@@ -17,13 +21,19 @@ package; a content hash of the source, the header and the flags names the
 library, so a changed source rebuilds.
 
 Each wrapper takes its plain twin for a CPU tensor and launches its kernel
-for a CUDA tensor, on the current stream; `launches[name]` counts launches.
+for a CUDA tensor, on the current stream; `launches[name]` counts the
+kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
 so a kernel's output equals its twin's limb for limb.
 
 Limbs cross to the kernels as int32 tensors that carry the uint32 bits:
 steady limbs are below 2^13, so the conversion from the port's int64 limbs
-is exact.
+is exact. The four Pippenger phase kernels (segscan, fixup, bucket_reduce,
+horner) take and return int32 limbs and keys on both devices: the MSM
+converts its point payload to int32 once, before the window loop, and keeps
+every per-window array in it. fixup and bucket_reduce launch one kernel per
+scan step (the launch boundary is the barrier across all lanes), and count
+each.
 """
 
 from __future__ import annotations
@@ -50,21 +60,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# name -> (source, generated functions, C entry point, its argtypes,
-#          the TPU kernel it replaces)
+# name -> (source, generated functions, C entry point, its argtypes before
+#          the launch count and the stream, the TPU kernel it replaces)
 KERNELS = {
     "padd_chain": ("padd_chain.cu", ("padd",), "padd_chain_launch",
-                   [_VP, _VP, _VP, _I, _I, _VP],
+                   [_VP, _VP, _VP, _I, _I],
                    "tpu_ecc/ops/pallas_kernels.py:426"),
     "pow": ("pow.cu", ("fp_mul", "fp_sqr", "fn_mul", "fn_sqr"), "pow_launch",
-            [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+            [_VP, _VP, _VP, _VP, _I, _I, _I],
             "tpu_ecc/ops/pallas_kernels.py:1140"),
     "ladder": ("ladder.cu", ("padd", "pdouble", "fp_neg", "fp_mul_beta"),
-               "ladder_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+               "ladder_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:887"),
     "genmul": ("genmul.cu", ("padd_mixed", "fp_neg"), "genmul_launch",
-               [_VP, _VP, _VP, _VP, _I, _I, _VP],
+               [_VP, _VP, _VP, _VP, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:1048"),
+    "segscan": ("segscan.cu", ("padd", "fp_neg"), "segscan_launch",
+                [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I],
+                "tpu_ecc/ops/pallas_kernels.py:463"),
+    "fixup": ("fixup.cu", ("padd",), "fixup_launch",
+              [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I],
+              "tpu_ecc/ops/pallas_kernels.py:647"),
+    "bucket_reduce": ("bucket_reduce.cu", ("padd",), "bucket_reduce_launch",
+                      [_VP, _VP, _VP, _I, _I, _I],
+                      "tpu_ecc/ops/pallas_kernels.py:733"),
+    "horner": ("horner.cu", ("padd", "pdouble"), "horner_launch",
+               [_VP, _VP, _I, _I], "tpu_ecc/ops/pallas_kernels.py:814"),
 }
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -149,19 +170,22 @@ def _bind(name: str, curve: CurveSpec):
         if not os.path.exists(so):
             build(curve, [name])
         fn = getattr(ctypes.CDLL(so), KERNELS[name][2])
-        fn.argtypes = KERNELS[name][3]
+        fn.argtypes = [*KERNELS[name][3], ctypes.POINTER(_I), _VP]
         fn.restype = ctypes.c_int
         _bound[key] = fn
     return _bound[key]
 
 
 def _launch(name: str, curve: CurveSpec, device: torch.device, *args) -> None:
+    """Call a kernel's C entry on the current stream and add the kernel
+    launches it reports making to `launches[name]`."""
     fn = _bind(name, curve)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, stream)
+    made = _I(0)
+    err = fn(*args, ctypes.byref(made), stream)
+    launches[name] += made.value
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    launches[name] += 1
 
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -301,8 +325,8 @@ def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     return _from_u32(out)
 
 
-def _identity_limbs(curve: CurveSpec, like: torch.Tensor) -> torch.Tensor:
-    return P.point_limbs(P.identity(curve, tuple(like.shape[-1:]), like.device))
+def _identity_of(curve: CurveSpec, batch_shape, device) -> torch.Tensor:
+    return P.point_limbs(P.identity(curve, tuple(batch_shape), device))
 
 
 def ladder_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
@@ -314,7 +338,7 @@ def ladder_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     tables = [_point_table(P.point_from_limbs(curve, bases[t]), TBL) for t in range(T)]
     beta = F.fe_from_int(f, curve.glv["beta"], tuple(bases.shape[-1:]),
                          bases.device) if glv else None
-    acc = P.point_from_limbs(curve, _identity_limbs(curve, bases))
+    acc = P.point_from_limbs(curve, _identity_of(curve, bases.shape[-1:], bases.device))
     for w in range(nw):
         for _ in range(4):
             acc = P.steady(P.pdouble(acc))
@@ -373,6 +397,162 @@ def genmul_plain(curve: CurveSpec, tbl: torch.Tensor, mag: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the Pippenger phases: segscan, fixup, bucket_reduce, horner
+# ---------------------------------------------------------------------------
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32)
+
+
+def segscan(curve: CurveSpec, key2: torch.Tensor, val2: torch.Tensor, nbuck: int,
+            neg2: torch.Tensor | None = None):
+    """Per-lane segmented scan of C digit-sorted points: keys key2 [C, *lanes],
+    steady point limbs val2 [C, 3, n, *lanes] and, with signed digits, the
+    sign masks neg2 [C, *lanes] (y is negated where set) -> int32 (scanned
+    [C, 3, n, *lanes], last_key [*lanes], tail [3, n, *lanes], lead
+    [3, n, *lanes]). The previous key starts at the sentinel `nbuck`; `lead`
+    is the scan's value at the end of each lane's leading run (the rows whose
+    key is the lane's first). Lanes are independent, so several windows can
+    go side by side."""
+    if key2.device.type == "cpu":
+        return segscan_plain(curve, key2, val2, nbuck, neg2)
+    C, lanes = key2.shape[0], tuple(key2.shape[1:])
+    n = curve.field.n_limbs
+    _check(key2, (C, *lanes), "segscan key2")
+    _check(val2, (C, 3, n, *lanes), "segscan val2")
+    if neg2 is not None:
+        _check(neg2, (C, *lanes), "segscan neg2")
+    k32, v32 = _u32(key2), _u32(val2)
+    g32 = None if neg2 is None else _u32(neg2)
+    dev = key2.device
+    scanned = torch.empty((C, 3, n, *lanes), dtype=torch.int32, device=dev)
+    last_key = torch.empty(lanes, dtype=torch.int32, device=dev)
+    tail = torch.empty((3, n, *lanes), dtype=torch.int32, device=dev)
+    lead = torch.empty((3, n, *lanes), dtype=torch.int32, device=dev)
+    _launch("segscan", curve, dev, k32.data_ptr(), v32.data_ptr(),
+            None if g32 is None else g32.data_ptr(), scanned.data_ptr(),
+            last_key.data_ptr(), tail.data_ptr(), lead.data_ptr(), C,
+            last_key.numel(), nbuck)
+    return scanned, last_key, tail, lead
+
+
+def segscan_plain(curve: CurveSpec, key2: torch.Tensor, val2: torch.Tensor,
+                  nbuck: int, neg2: torch.Tensor | None = None):
+    f = curve.field
+    key2 = key2.to(F.LIMB)
+    acc = lead = _identity_of(curve, key2.shape[1:], key2.device)
+    pk = torch.full_like(key2[0], nbuck)
+    rows = []
+    for r in range(key2.shape[0]):
+        v = val2[r].to(F.LIMB)
+        if neg2 is not None:
+            yn = F.fsteady(F.fneg(F.fe_steady(f, v[1]))).limbs
+            v = torch.stack([v[0], torch.where(neg2[r] != 0, yn, v[1]), v[2]], 0)
+        k = key2[r]
+        acc = torch.where(k == pk, P.add_limbs(curve, acc, v), v)
+        rows.append(acc)
+        lead = torch.where(k == key2[0], acc, lead)
+        pk = k
+    return (_i32(torch.stack(rows, 0)), _i32(pk), _i32(acc), _i32(lead))
+
+
+def fixup(curve: CurveSpec, t_l: torch.Tensor, last_key: torch.Tensor,
+          first_key: torch.Tensor, lead: torch.Tensor) -> torch.Tensor:
+    """Stitch the runs that cross lane boundaries, per window of L lanes
+    (the last axis; leading axes are independent windows): a segmented
+    Hillis–Steele scan of the lane tails t_l [3, n, *w, L] keyed on last_key
+    [*w, L], then lead + (T[l-1] where first_key[l] == last_key[l-1], else
+    O) -> int32 [3, n, *w, L]. log2(L) + 1 launches."""
+    if t_l.device.type == "cpu":
+        return fixup_plain(curve, t_l, last_key, first_key, lead)
+    keys = tuple(last_key.shape)
+    n = curve.field.n_limbs
+    _check(t_l, (3, n, *keys), "fixup t_l")
+    _check(first_key, keys, "fixup first_key")
+    _check(lead, (3, n, *keys), "fixup lead")
+    L = keys[-1]
+    t32, lk32, fk32, ld32 = _u32(t_l), _u32(last_key), _u32(first_key), _u32(lead)
+    out = torch.empty((3, n, *keys), dtype=torch.int32, device=t_l.device)
+    buf = torch.empty((2, 3, n, *keys), dtype=torch.int32, device=t_l.device)
+    _launch("fixup", curve, t_l.device, t32.data_ptr(), lk32.data_ptr(),
+            fk32.data_ptr(), ld32.data_ptr(), out.data_ptr(), buf.data_ptr(), L,
+            last_key.numel())
+    return out
+
+
+def fixup_plain(curve: CurveSpec, t_l: torch.Tensor, last_key: torch.Tensor,
+                first_key: torch.Tensor, lead: torch.Tensor) -> torch.Tensor:
+    L = t_l.shape[-1]
+    lk = last_key.to(F.LIMB)
+    lane = torch.arange(L, device=t_l.device)
+    vals = t_l.to(F.LIMB)
+    s = 1
+    while s < L:
+        ok = (torch.roll(lk, s, -1) == lk) & (lane >= s)
+        vals = torch.where(ok, P.add_limbs(curve, vals, torch.roll(vals, s, -1)), vals)
+        s *= 2
+    carry_ok = (first_key.to(F.LIMB) == torch.roll(lk, 1, -1)) & (lane >= 1)
+    carry = torch.where(carry_ok, torch.roll(vals, 1, -1),
+                        _identity_of(curve, lk.shape, lk.device))
+    return _i32(P.add_limbs(curve, lead.to(F.LIMB), carry))
+
+
+def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, drop0: bool) -> torch.Tensor:
+    """sum_b b * S_b over the buckets [3, n, *w, nbuck] of each window (the
+    last axis; nbuck a power of two >= 2; leading axes are independent
+    windows): a guarded suffix scan, bucket 0 dropped with `drop0`, then
+    lane 0 of a circular all-reduce, as a pairwise tree -> int32 [3, n, *w].
+    2 * log2(nbuck) launches."""
+    nbuck = buckets.shape[-1]
+    if nbuck < 2 or nbuck & (nbuck - 1):
+        raise ValueError(f"bucket_reduce: nbuck must be a power of two >= 2, got {nbuck}")
+    if buckets.device.type == "cpu":
+        return bucket_reduce_plain(curve, buckets, drop0)
+    n = curve.field.n_limbs
+    wins = tuple(buckets.shape[2:-1])
+    _check(buckets, (3, n, *wins, nbuck), "bucket_reduce buckets")
+    b32 = _u32(buckets)
+    groups = b32[0, 0].numel() // nbuck
+    out = torch.empty((3, n, *wins), dtype=torch.int32, device=buckets.device)
+    buf = torch.empty((2, *b32.shape), dtype=torch.int32, device=buckets.device)
+    _launch("bucket_reduce", curve, buckets.device, b32.data_ptr(), out.data_ptr(),
+            buf.data_ptr(), nbuck, groups, int(drop0))
+    return out
+
+
+def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor,
+                        drop0: bool) -> torch.Tensor:
+    suff = P.suffix_scan_limbs(curve, buckets.to(F.LIMB))
+    if drop0:
+        suff = torch.cat([_identity_of(curve, suff.shape[2:-1] + (1,), suff.device),
+                          suff[..., 1:]], -1)
+    return _i32(P.tree_total_limbs(curve, suff))
+
+
+def horner(curve: CurveSpec, s_all: torch.Tensor, w: int) -> torch.Tensor:
+    """acc = 2^w * acc + S_j over the window sums s_all [nw, 3, n], MSB
+    window first, from acc = O -> int32 [3, n]. One thread."""
+    if s_all.device.type == "cpu":
+        return horner_plain(curve, s_all, w)
+    nw = s_all.shape[0]
+    n = curve.field.n_limbs
+    _check(s_all, (nw, 3, n), "horner s_all")
+    s32 = _u32(s_all)
+    out = torch.empty((3, n), dtype=torch.int32, device=s_all.device)
+    _launch("horner", curve, s_all.device, s32.data_ptr(), out.data_ptr(), nw, w)
+    return out
+
+
+def horner_plain(curve: CurveSpec, s_all: torch.Tensor, w: int) -> torch.Tensor:
+    acc = P.identity(curve, (), s_all.device)
+    for j in range(s_all.shape[0]):
+        for _ in range(w):
+            acc = P.steady(P.pdouble(acc))
+        acc = P.steady(P.padd(acc, P.point_from_limbs(curve, s_all[j].to(F.LIMB))))
+    return _i32(P.point_limbs(acc))
+
+
+# ---------------------------------------------------------------------------
 # work per call, for the kernels' bounds
 # ---------------------------------------------------------------------------
 
@@ -391,8 +571,12 @@ def _total(*terms) -> dict:
 
 def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
     """(32-bit integer instructions by class, bytes that must move) of one
-    launch: padd_chain(repeat=), pow(field=0|1, e=), ladder(T=, nw=, glv=),
-    genmul(nw=)."""
+    call: padd_chain(repeat=), pow(field=0|1, e=), ladder(T=, nw=, glv=),
+    genmul(nw=), segscan(C=, adds=, signed=), fixup(adds=),
+    bucket_reduce(groups=), horner(nw=, w=). B is the lanes of all windows
+    (segscan, fixup), the buckets of one window (bucket_reduce) or 1
+    (horner); `adds` counts the adds that the call's data needs (rows whose
+    key repeats; lanes whose partner is in their run, over all steps)."""
     c = op_counts(curve)
     n = curve.field.n_limbs
     pn = 3 * n
@@ -426,4 +610,21 @@ def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
         ops = _total((nw * B, c["padd_mixed"]), (nw * B, c["fp_neg"]),
                      (nw * B, select))
         return ops, nw * TBL * 2 * n * 4 + (2 * nw + pn) * 4 * B
+    if name == "segscan":
+        C, signed = kw["C"], kw["signed"]
+        # signed: the negation of y and the select of n words, every row
+        ops = _total((kw["adds"], c["padd"]),
+                     (C * B if signed else 0, c["fp_neg"]),
+                     (C * B if signed else 0, {"imad": 0, "alu": n, "other": 0}))
+        return ops, (C * (2 * pn + 1 + signed) + 2 * pn + 1) * 4 * B
+    if name == "fixup":
+        return _total((kw["adds"] + B, c["padd"])), (3 * pn + 2) * 4 * B
+    if name == "bucket_reduce":
+        G, steps = kw["groups"], B.bit_length() - 1
+        adds = G * (sum(B - (1 << k) for k in range(steps)) + B - 1)
+        return _total((adds, c["padd"])), pn * 4 * G * (B + 1)
+    if name == "horner":
+        nw, w = kw["nw"], kw["w"]
+        return (_total((nw * w, c["pdouble"]), (nw, c["padd"])),
+                (nw + 1) * pn * 4)
     raise KeyError(name)

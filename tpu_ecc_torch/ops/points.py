@@ -95,6 +95,13 @@ def pselect(mask, a: Point, b: Point) -> Point:
                  F.fselect(mask, a.z, b.z), a.curve)
 
 
+def peq(P: Point, Q: Point) -> torch.Tensor:
+    """Batched equality via cross-multiplication (identity-safe)."""
+    ex = F.feq(F.fmul(P.x, Q.z), F.fmul(Q.x, P.z))
+    ey = F.feq(F.fmul(P.y, Q.z), F.fmul(Q.y, P.z))
+    return ex & ey
+
+
 def pneg(P: Point) -> Point:
     return Point(P.x, F.fneg(P.y), P.z, P.curve)
 
@@ -103,6 +110,14 @@ def to_affine(P: Point):
     """Batched projective -> affine: (x, y, is_identity). One Fermat inversion
     per element, batched."""
     zi = F.finv(P.z)
+    return F.fmul(P.x, zi), F.fmul(P.y, zi), is_identity(P)
+
+
+def batch_normalize(P: Point):
+    """Affine conversion with one field inversion for the whole batch
+    (Montgomery's trick, `fe.fbatch_inv`; BatchNormalize,
+    primeorder/src/projective.rs:363-413). Returns (x, y, is_identity)."""
+    zi = F.fbatch_inv(P.z)
     return F.fmul(P.x, zi), F.fmul(P.y, zi), is_identity(P)
 
 
@@ -136,6 +151,37 @@ def point_from_limbs(curve: CurveSpec, arr: torch.Tensor) -> Point:
     f = curve.field
     return Point(F.fe_steady(f, arr[0]), F.fe_steady(f, arr[1]),
                  F.fe_steady(f, arr[2]), curve)
+
+
+def add_limbs(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """steady(padd(a, b)) on packed steady limbs [3, n_limbs, *batch]: the
+    step of every scan over packed points (the kernels' ksteady(padd))."""
+    return point_limbs(steady(padd(point_from_limbs(curve, a), point_from_limbs(curve, b))))
+
+
+def suffix_scan_limbs(curve: CurveSpec, limbs: torch.Tensor) -> torch.Tensor:
+    """Hillis–Steele suffix scan of point limbs [3, n, *batch, W] over the
+    last axis: out[i] = sum_{j >= i} in[j], one `add_limbs` per step with
+    shift s = 1, 2, .., W/2, guarded (no wraparound)."""
+    W = limbs.shape[-1]
+    s = 1
+    while s < W:
+        head = add_limbs(curve, limbs[..., :W - s], limbs[..., s:])
+        limbs = torch.cat([head, limbs[..., W - s:]], -1)
+        s *= 2
+    return limbs
+
+
+def tree_total_limbs(curve: CurveSpec, limbs: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of the Hillis–Steele all-reduce of point limbs [3, n, *batch,
+    W] (W a power of two) -> [3, n, *batch]. The all-reduce adds roll(acc,
+    -s) at s = 1, 2, ..; lane 0's result needs at shift s only the lanes
+    that are multiples of 2s, which read multiples of s and never wrap, so
+    it is the pairwise tree acc[t] = acc[2t] + acc[2t+1]: W - 1 adds, the
+    same limbs."""
+    while limbs.shape[-1] > 1:
+        limbs = add_limbs(curve, limbs[..., 0::2], limbs[..., 1::2])
+    return limbs[..., 0]
 
 
 # ---------------------------------------------------------------------------
