@@ -1,7 +1,7 @@
 """Where the time of tpu_ecc_torch's batched verify and sign goes, on one
 NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [curve]      # secp256k1 (default) or p256
 
 Builds the kernels, makes the 8192 signatures of chip_smoke.py and 8192
 (d, z) from a seed, then for each of verify and sign times (the timings of
@@ -113,14 +113,15 @@ def main() -> int:
     from tpu_ecc_torch.protocols import ecdsa as E
     from tpu_ecc_torch.protocols import rfc6979
 
-    curve = get_curve("secp256k1")
+    curve = get_curve(sys.argv[1] if len(sys.argv) > 1 else "secp256k1")
+    low_s = curve.name in E.LOW_S_CURVES
     f, s = curve.field, curve.scalar
     n = E.DEFAULT_CHUNK
-    K.build(curve)
+    K.build(curve, ["pow", "ladder", "genmul"])
     native.build()
-    print(f"card: {smi('name,power.limit')}")
+    print(f"card: {smi('name,power.limit')}; curve: {curve.name}")
 
-    pubs, zs, sigs, expect = signatures(curve, SIGS, 256, 5)
+    pubs, zs, sigs, expect = signatures(curve, SIGS, 256, 5, low_s)
     if E.verify_batch(curve, pubs, zs, sigs) != expect:
         raise AssertionError("verify_batch disagrees with the expected booleans")
     v_walls = _wall(lambda: E.verify_batch(curve, pubs, zs, sigs))
@@ -144,7 +145,7 @@ def main() -> int:
     ks = rfc6979.generate_k_batch(curve.n, ds[:n], [z.to_bytes(32, "big") for z in zs[:n]])
     buf = np.concatenate([F.words_from_ints(v, s.bits) for v in (ks, zs[:n], ds[:n])], 0)
     s_buf = torch.from_numpy(buf.astype(np.int64)).cuda()
-    s_core = lambda b: E._sign_core(curve, True, b)                    # noqa: E731
+    s_core = lambda b: E._sign_core(curve, low_s, b)                   # noqa: E731
     s_cores = _core_times(s_core, s_buf)
 
     verify = profile_core("verify_batch", v_core, v_buf, v_walls, v_cores)

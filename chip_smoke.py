@@ -3,14 +3,20 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (csrc/, sm_90a) from the checkout, one nvcc per
-   source, all started together, and the native signing code (g++), and
-   prints the seconds it took.
+   source and curve, all started together: all ten for secp256k1 and the
+   six of the P-256 path (padd, pdouble, padd_chain, pow, ladder, genmul);
+   then the native signing code (g++). Prints the seconds it took and
+   ptxas's registers and stack for each.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference):
    padd_chain at B = 8192, repeat 16; pow on the scalar field (e = n - 2)
    and the base field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at
    B = 4096 and with glv=False, T = 1 (65 windows); genmul (the comb k*G)
-   at B = 4096, 65 windows, on random scalars plus 0 and n - 1.
+   at B = 4096, 65 windows, on random scalars plus 0 and n - 1; padd and
+   pdouble at B = 8192. Then the P-256 builds at the P-256 path's shapes:
+   padd and pdouble, padd_chain at B = 8192, repeat 16, pow on both fields
+   at B = 4096, ladder with T = 2 and no GLV (65 windows) at B = 4096, and
+   genmul at B = 4096.
 3. Verify: `verify_batch` on secp256k1 over 8192 signatures in two chunks,
    about a quarter of them tampered, run 7 times; every boolean must match
    in every run. Prints each run's verifies/s and their median, and the
@@ -26,8 +32,15 @@
    ladder and pow kernels launched. Prints each rate, its runs and median.
 5. The headline: padd_chain adds/s at B = 8192, repeat 16, by chain-length
    differencing (the extra work of a longer chain over its extra time), and
-   a check of the chain's result against the host oracle.
-6. MSM: 2^20 points P_i = a_i*G made on the card (`derive_public_batch`)
+   a check of the chain's result against the host oracle. Then the single
+   point operations `padd_points` and `pdouble_points` at B = 8192 on both
+   curves (the padd and pdouble kernels), 8 lanes each against the host
+   oracle.
+6. P-256: steps 3-5 again on P-256 (sha256, not low-s; the verify's
+   lincomb on the two-term ladder without GLV, 65 windows), with the same
+   sizes, checks and run counts, except that the signatures are the host
+   oracle's without low-s folding.
+7. MSM: 2^20 points P_i = a_i*G made on the card (`derive_public_batch`)
    and full-width k_i, from a seed. Holds the four Pippenger phase kernels
    against their twins on the card at the shapes the first group of
    windows gives them (segscan signed and unsigned, fixup, bucket_reduce
@@ -38,9 +51,10 @@
    Straus `msm()` at 4096 points is checked the same way, with the ladder
    launched. Last, one core run under torch.profiler gives the device time
    of each step of msm_pippenger (its `msm/<step>` ranges).
-7. Prints the card's name and power limit, a `kernels` JSON line (each
-   kernel's launches on the main path, its error against its twin, its time,
-   its twin's time and its bound), and last a JSON line with the device.
+8. Prints the card's name and power limit, a `kernels` JSON line (each
+   kernel and P-256 build: its launches on the main path, its error against
+   its twin, its time, its twin's time and its bound), and last a JSON line
+   with the device.
 
 Any mismatch or fault raises, so the exit code is not 0. Without a CUDA
 device it exits with code 1 and prints no result.
@@ -73,6 +87,14 @@ MSM_POINTS = 1 << 20
 MSM_RUNS = 5
 MSM_W, MSM_LANES = 14, 8192       # msm()'s defaults at 2^20 points
 STRAUS_POINTS = 4096
+# the kernels of the P-256 path (the MSM's are built for secp256k1 only)
+P256_KERNELS = ("padd", "pdouble", "padd_chain", "pow", "ladder", "genmul")
+
+
+def row_name(name: str, curve) -> str:
+    """A kernel's name in the record: bare for secp256k1, else with the
+    curve of its build, as in `ladder[p256]`."""
+    return name if curve.name == "secp256k1" else f"{name}[{curve.name}]"
 
 
 def smi(query: str) -> str:
@@ -118,7 +140,7 @@ def _points(curve, seed: int, B: int, dev):
     return P.point_limbs(P.steady(Q)), pts
 
 
-def signatures(curve, count: int, distinct: int, seed: int):
+def signatures(curve, count: int, distinct: int, seed: int, low_s: bool = True):
     """`count` (pub, z, sig, expected) tuples tiled from `distinct` valid
     signatures made by the host oracle; every fourth is tampered (z + 1 or
     the low bit of r flipped) and expected to fail."""
@@ -130,7 +152,7 @@ def signatures(curve, count: int, distinct: int, seed: int):
         d, z, k = (int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1
                    for _ in range(3))
         pub = H.aff_mul(curve, d, H.aff_generator(curve))
-        base.append((pub, z, H.ecdsa_sign(curve, d, z, k, low_s=True)))
+        base.append((pub, z, H.ecdsa_sign(curve, d, z, k, low_s=low_s)))
     pubs, zs, sigs, expect = [], [], [], []
     for i in range(count):
         pub, z, (r, s) = base[i % distinct]
@@ -217,9 +239,147 @@ def msm_phase_ms(core) -> dict:
             out["busy"] += dev_us(e, False) / 1e3
             name = e.key.removeprefix("void ").split("(")[0].split("<")[0]
             name = name.removesuffix("_kernel")
-            for kname in K.KERNELS:
-                if name == kname or name.startswith(f"{kname}_"):
-                    out["by_name"][kname] = out["by_name"].get(kname, 0.0) + dev_us(e, False) / 1e3
+            found = [k for k in K.KERNELS if name == k or name.startswith(f"{k}_")]
+            if found:                   # the longest: padd_chain_kernel is not padd's
+                kname = max(found, key=len)
+                out["by_name"][kname] = out["by_name"].get(kname, 0.0) + dev_us(e, False) / 1e3
+    return out
+
+
+def ecdsa_phases(curve, verify_runs: int, runs: int) -> dict:
+    """Steps 3 and 4 on `curve`: verify 8192 signatures (a quarter tampered)
+    `verify_runs` times; sign 8192 (d, z), derive their keys, recover them,
+    `runs` times each, with the sampled lanes held against the host oracle.
+    Returns the median rates and the launches of one run of each."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.protocols import ecdsa as E
+    from tpu_ecc_torch.protocols import rfc6979
+    from tpu_ecc_torch.utils import ec_host as H
+
+    low_s = curve.name in E.LOW_S_CURVES
+    print(f"verify: {curve.name}, 8192 signatures in 2 chunks")
+    t = time.perf_counter()
+    pubs, zs, sigs, expect = signatures(curve, 8192, 256, 5, low_s)
+    print(f"  host oracle made the signatures in {time.perf_counter() - t:.1f} s")
+    _, rates_v, verify_rate, verify_launches = measure_runs(
+        "verify_batch", lambda: E.verify_batch(curve, pubs, zs, sigs), len(sigs),
+        verify_runs, ("pow", "ladder"), want=expect)
+    print(f"  {sum(expect)} valid and {len(expect) - sum(expect)} tampered, all as "
+          f"expected in each of {verify_runs} runs; verifies/s median {verify_rate:.1f}, "
+          f"runs {[round(r, 1) for r in rates_v]}; launches per run {verify_launches}")
+    torch.cuda.synchronize()
+
+    print(f"sign: {curve.name}, {SIGNS} (d, z) in 2 chunks, RFC 6979 nonces")
+    rng = np.random.default_rng(6)
+    ds = [int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1 for _ in range(SIGNS)]
+    zs_s = [int.from_bytes(rng.bytes(32), "big") % curve.n for _ in range(SIGNS)]
+    sample = [int(i) for i in rng.choice(SIGNS, SAMPLE, replace=False)]
+    G = H.aff_generator(curve)
+    signed, rates_s, sign_rate, sign_launches = measure_runs(
+        "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), SIGNS, runs, ("genmul", "pow"))
+    for i in sample:                # nonces from the pure-Python RFC 6979
+        k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(32, "big"))
+        if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=low_s):
+            raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
+    print(f"  {SAMPLE} sampled lanes equal the host oracle; signs/s median "
+          f"{sign_rate:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
+          f"{sign_launches}")
+    pubs_d, rates_d, derive_rate, derive_launches = measure_runs(
+        "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), SIGNS, runs,
+        ("genmul", "pow"))
+    for i in sample:
+        if pubs_d[i] != H.aff_mul(curve, ds[i], G):
+            raise AssertionError(f"derive_public_batch lane {i} disagrees with the host oracle")
+    print(f"  derive: {SAMPLE} sampled lanes equal the host oracle; derives/s median "
+          f"{derive_rate:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
+          f"{derive_launches}")
+    if E.verify_batch(curve, pubs_d, zs_s, [(r, s) for r, s, _ in signed]) != [True] * SIGNS:
+        raise AssertionError("a signature of sign_batch fails verify_batch")
+    _, rates_r, recover_rate, recover_launches = measure_runs(
+        "recover_batch", lambda: E.recover_batch(curve, zs_s, signed), SIGNS, runs,
+        ("ladder", "pow"), want=pubs_d)
+    print(f"  all {SIGNS} signatures verify under the derived keys, and recover_batch "
+          f"gives back every key; recovers/s median {recover_rate:.1f}, runs "
+          f"{[round(r, 1) for r in rates_r]}; launches per run {recover_launches}")
+    torch.cuda.synchronize()
+    return {"verify": verify_rate, "sign": sign_rate, "derive": derive_rate,
+            "recover": recover_rate, "verify_launches": verify_launches,
+            "sign_launches": sign_launches}
+
+
+def chain_phase(curve, a_l, b_l, a_pts, b_pts):
+    """Step 5 on `curve`: padd_chain adds/s at B = 8192, repeat 16, by
+    chain-length differencing (best of 3), and 8 lanes of the result held
+    against the host oracle. Returns (adds/s, the chain's launches)."""
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.utils import ec_host as H
+
+    print(f"headline: padd_chain, {curve.name}, B=8192, repeat 16")
+    B, repeat = 8192, 16
+    a = P.point_from_limbs(curve, a_l)
+    b = P.point_from_limbs(curve, b_l)
+    K.reset_launches()
+    out = P.point_limbs(P.padd_chain(a, b, repeat))
+    add_rates = []
+    for _ in range(3):
+        times = []
+        for count in (16, 80):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(count):
+                out = K.padd_chain(curve, out, b_l, repeat)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if times[1] > times[0]:
+            add_rates.append((80 - 16) * repeat * B / (times[1] - times[0]))
+    chain_launches = K.launches["padd_chain"]
+    if chain_launches <= 0 or not add_rates:
+        raise AssertionError("the headline chain did not run")
+    total = 1 + 3 * (16 + 80)
+    ax, ay, _ = P.to_affine(P.point_from_limbs(curve, out[:, :, :8]))
+    x, y = F.fe_to_ints(ax), F.fe_to_ints(ay)
+    for i in range(8):
+        want = H.aff_add(curve, a_pts[i], H.aff_mul(curve, total * repeat, b_pts[i]))
+        if (x[i], y[i]) != want:
+            raise AssertionError(f"padd_chain lane {i} disagrees with the host oracle")
+    print(f"  {max(add_rates):.6g} adds/s (best of {[f'{r:.6g}' for r in add_rates]}); "
+          f"result checked against the host oracle")
+    torch.cuda.synchronize()
+    return max(add_rates), chain_launches
+
+
+def single_point_ops(curves, dev) -> dict:
+    """`padd_points` and `pdouble_points` (the padd and pdouble kernels) at
+    B = 8192 on each curve, the counts set to 0 just before and read just
+    after, 8 lanes held against the host oracle. Returns {curve name:
+    {kernel: launches}}."""
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.utils import ec_host as H
+
+    out = {}
+    for curve in curves:
+        a_l, a_pts = _points(curve, 11, 8192, dev)
+        b_l, b_pts = _points(curve, 12, 8192, dev)
+        a, b = P.point_from_limbs(curve, a_l), P.point_from_limbs(curve, b_l)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        s, d = K.padd_points(a, b), K.pdouble_points(a)
+        torch.cuda.synchronize()
+        out[curve.name] = {"padd": K.launches["padd"], "pdouble": K.launches["pdouble"]}
+        for pt, want in ((s, [H.aff_add(curve, u, v) for u, v in zip(a_pts, b_pts)]),
+                         (d, [H.aff_add(curve, u, u) for u in a_pts])):
+            x, y, _ = P.to_affine(P.point_from_limbs(curve, P.point_limbs(pt)[..., :8]))
+            if list(zip(F.fe_to_ints(x), F.fe_to_ints(y))) != want[:8]:
+                raise AssertionError(f"padd_points/pdouble_points on {curve.name} "
+                                     "disagree with the host oracle")
+        if min(out[curve.name].values()) <= 0:
+            raise AssertionError(f"the single point ops on {curve.name} did not launch")
+        print(f"single point ops, {curve.name}, B=8192: padd_points and pdouble_points "
+              f"equal the host oracle on 8 lanes; launches {out[curve.name]}")
     return out
 
 
@@ -233,23 +393,25 @@ def main() -> int:
     from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import points as P
     from tpu_ecc_torch.ops import scalarmul as SM
-    from tpu_ecc_torch.protocols import ecdsa as E
     from tpu_ecc_torch.parallel import msm as M
-    from tpu_ecc_torch.protocols import rfc6979
     from tpu_ecc_torch.utils import ec_host as H
 
+    started = time.perf_counter()
     dev = torch.device("cuda")
-    curve = get_curve("secp256k1")
+    curve, p256 = get_curve("secp256k1"), get_curve("p256")
+    curves = (curve, p256)
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = K.build(curve)
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(K.KERNELS)}")
-    for name, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines()
+    targets = [(curve, name) for name in K.KERNELS] + [(p256, name) for name in P256_KERNELS]
+    reports = K.build_targets(targets)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(targets)} kernels: "
+          f"{sorted(K.KERNELS)} for secp256k1, {list(P256_KERNELS)} for p256")
+    for (cname, name), rep in reports.items():
+        regs = [ln.split(":", 1)[1].strip() for ln in rep.splitlines()
                 if "registers" in ln and "Used" in ln]
-        print(f"  {name}: {regs[0] if regs else 'no ptxas report'}")
+        print(f"  {cname} {name}: {regs[0] if regs else 'no ptxas report'}")
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
@@ -258,10 +420,12 @@ def main() -> int:
     # -- 2. each kernel against its plain twin, at the main path's shapes ---
     rows = {}
 
-    def hold(name, label, kern, plain, reps, B=None, **work):
+    def hold(name, label, kern, plain, reps, B=None, c=None, **work):
         """kern() against plain() (a tensor or a tuple of them), then kern's
         ms over `reps` runs and its bound from K.work (B: the lanes, by
-        default the output's last axis)."""
+        default the output's last axis) for curve c (default secp256k1,
+        whose rows are named by the kernel alone)."""
+        c = c or curve
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -276,13 +440,14 @@ def main() -> int:
             raise AssertionError(f"{name} ({label}) differs from its plain twin: "
                                  f"max abs limb difference {err}")
         ms = _time_ms(kern, reps)
-        ops, nbytes = K.work(name, curve, outs_k[0].shape[-1] if B is None else B, **work)
+        ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B, **work)
         bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz)
         bound_ms = 1e3 * max(bytes_s, ops_s)
         by = "bytes" if bytes_s > ops_s else "operations"
-        print(f"  {name} [{label}]: limb-equal to its twin; kernel {ms:.3f} ms, "
+        key = row_name(name, c)
+        print(f"  {key} [{label}]: limb-equal to its twin; kernel {ms:.3f} ms, "
               f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by})")
-        row = rows.setdefault(name, {"max_abs_err": 0})
+        row = rows.setdefault(key, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if "ms" not in row:        # the first variant is the main path's shape
             row.update(ms=ms, plain_ms=1e3 * plain_s, bound_ms=bound_ms, bound_by=by)
@@ -325,90 +490,58 @@ def main() -> int:
     hold("genmul", f"nw={mag_g.shape[0]} B=4096",
          lambda: K.genmul(curve, tbl_g, mag_g, neg_g),
          lambda: K.genmul_plain(curve, tbl_g, mag_g, neg_g), 10, nw=mag_g.shape[0])
+    for c in curves:
+        pa_l, _ = _points(c, 11, 8192, dev)
+        pb_l, _ = _points(c, 12, 8192, dev)
+        hold("padd", f"{c.name} B=8192", lambda: K.padd(c, pa_l, pb_l),
+             lambda: K.padd_plain(c, pa_l, pb_l), 20, c=c)
+        hold("pdouble", f"{c.name} B=8192", lambda: K.pdouble(c, pa_l),
+             lambda: K.pdouble_plain(c, pa_l), 20, c=c)
+
+    print("hold: the P-256 builds against their plain twins")
+    pa_l, pa_pts = _points(p256, 1, 8192, dev)
+    pb_l, pb_pts = _points(p256, 2, 8192, dev)
+    hold("padd_chain", "p256 B=8192 repeat=16",
+         lambda: K.padd_chain(p256, pa_l, pb_l, 16),
+         lambda: K.padd_chain_plain(p256, pa_l, pb_l, 16), 20, c=p256, repeat=16)
+    for spec, field in ((p256.scalar, 1), (p256.field, 0)):
+        xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(4096)]
+        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+        e = spec.p - 2
+        hold("pow", f"{spec.name} e=p-2 B=4096",
+             lambda: K.fpow(spec, x, e), lambda: K.fpow_plain(spec, x, e), 10,
+             c=p256, field=field, e=e)
+    Qs, _ = _points(p256, 4, 4096, dev)
+    ks = [SM.pack_scalars(p256, [int.from_bytes(rng.bytes(32), "big")
+                                 for _ in range(4096)], dev) for _ in range(2)]
+    bases, mag, neg = SM.ladder_inputs([(P.generator(p256, (4096,), dev), ks[0]),
+                                        (P.point_from_limbs(p256, Qs), ks[1])])
+    hold("ladder", f"p256 T=2 nw={mag.shape[0]} B=4096",
+         lambda: K.ladder(p256, bases, mag, neg),
+         lambda: K.ladder_plain(p256, bases, mag, neg), 3,
+         c=p256, T=2, nw=mag.shape[0], glv=False)
+    kg = [0, p256.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
+    mag_g, neg_g = SM.signed_digits(p256, SM.pack_scalars(p256, kg, dev))
+    mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
+    tbl_g = SM._gen_table(p256, dev)
+    hold("genmul", f"p256 nw={mag_g.shape[0]} B=4096",
+         lambda: K.genmul(p256, tbl_g, mag_g, neg_g),
+         lambda: K.genmul_plain(p256, tbl_g, mag_g, neg_g), 10, c=p256,
+         nw=mag_g.shape[0])
+    del bases, mag, neg, tbl_g, mag_g, neg_g
     torch.cuda.synchronize()
 
-    # -- 3. the main path: batched ECDSA verify ------------------------------
-    print("verify: secp256k1, 8192 signatures in 2 chunks")
-    t = time.perf_counter()
-    pubs, zs, sigs, expect = signatures(curve, 8192, 256, 5)
-    print(f"  host oracle made the signatures in {time.perf_counter() - t:.1f} s")
-    _, rates_v, verify_rate, verify_launches = measure_runs(
-        "verify_batch", lambda: E.verify_batch(curve, pubs, zs, sigs), len(sigs),
-        VERIFY_RUNS, ("pow", "ladder"), want=expect)
-    print(f"  {sum(expect)} valid and {len(expect) - sum(expect)} tampered, all as "
-          f"expected in each of {VERIFY_RUNS} runs; verifies/s median {verify_rate:.1f}, "
-          f"runs {[round(r, 1) for r in rates_v]}; launches per run {verify_launches}")
-    torch.cuda.synchronize()
+    # -- 3.-5. the main path on secp256k1: ECDSA, the point-add chain --------
+    k256 = ecdsa_phases(curve, VERIFY_RUNS, RUNS)
+    k256["adds"], chain_launches = chain_phase(curve, a_l, b_l, a_pts, b_pts)
+    single = single_point_ops(curves, dev)
 
-    # -- 4. sign, derive, recover ---------------------------------------------
-    print(f"sign: secp256k1, {SIGNS} (d, z) in 2 chunks, RFC 6979 nonces")
-    rng = np.random.default_rng(6)
-    ds = [int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1 for _ in range(SIGNS)]
-    zs_s = [int.from_bytes(rng.bytes(32), "big") % curve.n for _ in range(SIGNS)]
-    sample = [int(i) for i in rng.choice(SIGNS, SAMPLE, replace=False)]
+    # -- 6. the P-256 path: ECDSA, the point-add chain ------------------------
+    p = ecdsa_phases(p256, VERIFY_RUNS, RUNS)
+    p["adds"], p_chain_launches = chain_phase(p256, pa_l, pb_l, pa_pts, pb_pts)
     G = H.aff_generator(curve)
-    signed, rates_s, sign_rate, sign_launches = measure_runs(
-        "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), SIGNS, RUNS, ("genmul", "pow"))
-    for i in sample:                # nonces from the pure-Python RFC 6979
-        k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(32, "big"))
-        if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=True):
-            raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
-    print(f"  {SAMPLE} sampled lanes equal the host oracle; signs/s median "
-          f"{sign_rate:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
-          f"{sign_launches}")
-    pubs_d, rates_d, derive_rate, derive_launches = measure_runs(
-        "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), SIGNS, RUNS,
-        ("genmul", "pow"))
-    for i in sample:
-        if pubs_d[i] != H.aff_mul(curve, ds[i], G):
-            raise AssertionError(f"derive_public_batch lane {i} disagrees with the host oracle")
-    print(f"  derive: {SAMPLE} sampled lanes equal the host oracle; derives/s median "
-          f"{derive_rate:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
-          f"{derive_launches}")
-    if E.verify_batch(curve, pubs_d, zs_s, [(r, s) for r, s, _ in signed]) != [True] * SIGNS:
-        raise AssertionError("a signature of sign_batch fails verify_batch")
-    _, rates_r, recover_rate, recover_launches = measure_runs(
-        "recover_batch", lambda: E.recover_batch(curve, zs_s, signed), SIGNS, RUNS,
-        ("ladder", "pow"), want=pubs_d)
-    print(f"  all {SIGNS} signatures verify under the derived keys, and recover_batch "
-          f"gives back every key; recovers/s median {recover_rate:.1f}, runs "
-          f"{[round(r, 1) for r in rates_r]}; launches per run {recover_launches}")
-    torch.cuda.synchronize()
 
-    # -- 5. the headline: point adds per second -------------------------------
-    print("headline: padd_chain, B=8192, repeat 16")
-    B, repeat = 8192, 16
-    a = P.point_from_limbs(curve, a_l)
-    b = P.point_from_limbs(curve, b_l)
-    K.reset_launches()
-    out = P.point_limbs(P.padd_chain(a, b, repeat))
-    add_rates = []
-    for _ in range(3):
-        times = []
-        for count in (16, 80):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(count):
-                out = K.padd_chain(curve, out, b_l, repeat)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        if times[1] > times[0]:
-            add_rates.append((80 - 16) * repeat * B / (times[1] - times[0]))
-    chain_launches = K.launches["padd_chain"]
-    if chain_launches <= 0 or not add_rates:
-        raise AssertionError("the headline chain did not run")
-    total = 1 + 3 * (16 + 80)
-    ax, ay, _ = P.to_affine(P.point_from_limbs(curve, out[:, :, :8]))
-    x, y = F.fe_to_ints(ax), F.fe_to_ints(ay)
-    for i in range(8):
-        want = H.aff_add(curve, a_pts[i], H.aff_mul(curve, total * repeat, b_pts[i]))
-        if (x[i], y[i]) != want:
-            raise AssertionError(f"padd_chain lane {i} disagrees with the host oracle")
-    print(f"  {max(add_rates):.6g} adds/s (best of {[f'{r:.6g}' for r in add_rates]}); "
-          f"result checked against the host oracle")
-    torch.cuda.synchronize()
-
-    # -- 6. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
+    # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
     print(f"msm: secp256k1, {MSM_POINTS} points a_i*G made on the card, full-width k_i")
     t = time.perf_counter()
     raw = np.random.default_rng(8).bytes(64 * MSM_POINTS)
@@ -516,21 +649,31 @@ def main() -> int:
     phases = msm_phase_ms(core)        # last: a profiler run leaves overhead behind
     print(f"  device core by step (one profiled run), ms: {json.dumps(phases)}")
 
-    # -- 7. the record --------------------------------------------------------
-    launches = {"padd_chain": chain_launches, "pow": verify_launches["pow"],
-                "ladder": verify_launches["ladder"], "genmul": sign_launches["genmul"],
-                **{name: msm_launches[name]
-                   for name in ("segscan", "fixup", "bucket_reduce", "horner")}}
+    # -- 8. the record --------------------------------------------------------
+    launches = {(curve, "padd_chain"): chain_launches,
+                (curve, "pow"): k256["verify_launches"]["pow"],
+                (curve, "ladder"): k256["verify_launches"]["ladder"],
+                (curve, "genmul"): k256["sign_launches"]["genmul"],
+                **{(curve, name): msm_launches[name]
+                   for name in ("segscan", "fixup", "bucket_reduce", "horner")},
+                **{(c, name): single[c.name][name] for c in curves
+                   for name in ("padd", "pdouble")},
+                (p256, "padd_chain"): p_chain_launches,
+                (p256, "pow"): p["verify_launches"]["pow"],
+                (p256, "ladder"): p["verify_launches"]["ladder"],
+                (p256, "genmul"): p["sign_launches"]["genmul"]}
     kernels = []
-    for name in launches:
+    for (c, name), count in launches.items():
         src, _, _, _, replaces = K.KERNELS[name]
-        kernels.append({"name": name, "route": "cuda",
+        kernels.append({"name": row_name(name, c), "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
-                        "launches": launches[name], **rows[name], "library_ms": None})
-    print(f"slice: {verify_rate:.1f} verifies/s (median of {VERIFY_RUNS}), "
-          f"{sign_rate:.1f} signs/s, {derive_rate:.1f} derives/s, {recover_rate:.1f} "
-          f"recovers/s (medians of {RUNS}), {max(add_rates):.6g} adds/s, "
-          f"{msm_rate:.1f} MSM points/s (median of {MSM_RUNS})")
+                        "launches": count, **rows[row_name(name, c)], "library_ms": None})
+    for c, r in ((curve, k256), (p256, p)):
+        print(f"slice, {c.name}: {r['verify']:.1f} verifies/s (median of {VERIFY_RUNS}), "
+              f"{r['sign']:.1f} signs/s, {r['derive']:.1f} derives/s, {r['recover']:.1f} "
+              f"recovers/s (medians of {RUNS}), {r['adds']:.6g} adds/s")
+    print(f"msm, secp256k1: {msm_rate:.1f} MSM points/s (median of {MSM_RUNS}); "
+          f"chip_smoke took {time.perf_counter() - started:.1f} s")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

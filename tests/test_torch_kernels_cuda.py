@@ -37,6 +37,9 @@ def k256():
     return get_curve("secp256k1")
 
 
+CURVES = ["secp256k1", "p256"]      # a = 0 (solinas field), a = -3 (Montgomery)
+
+
 def _points(curve, seed, b, dev):
     """b steady points k*G for random k (a few distinct, tiled)."""
     rng = np.random.default_rng(seed)
@@ -47,17 +50,53 @@ def _points(curve, seed, b, dev):
     return P.point_limbs(P.steady(Q))
 
 
-def test_padd_chain_matches_plain(dev, k256):
-    a = _points(k256, 1, B, dev)
-    b = _points(k256, 2, B, dev)
-    out = kernels.padd_chain(k256, a, b, 5)
+@pytest.mark.parametrize("name", CURVES)
+def test_padd_and_pdouble_match_plain(dev, name):
+    """One add and one doubling per lane, with a doubling lane (a = b), an
+    inverse pair (a = -b) and identities among the random lanes."""
+    curve = get_curve(name)
+    a = _points(curve, 1, B, dev)
+    b = _points(curve, 2, B, dev).clone()
+    b[:, :, 1] = a[:, :, 1]
+    b[:, :, 2] = P.point_limbs(P.steady(P.pneg(P.point_from_limbs(curve, a[:, :, 2:3]))))[..., 0]
+    ident = P.point_limbs(P.identity(curve, (1,), dev))[..., 0]
+    a[:, :, 3] = ident
+    b[:, :, 4] = ident
+    out = kernels.padd(curve, a, b)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.padd_chain_plain(k256, a, b, 5))
+    assert torch.equal(out, kernels.padd_plain(curve, a, b))
+    out = kernels.pdouble(curve, a)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.pdouble_plain(curve, a))
+    pa, pb = P.point_from_limbs(curve, a), P.point_from_limbs(curve, b)
+    a_aff, b_aff = _affine(curve, a), _affine(curve, b)
+    assert _affine(curve, P.point_limbs(kernels.padd_points(pa, pb))) == \
+        [ec_host.aff_add(curve, u, v) for u, v in zip(a_aff, b_aff)]
+    assert _affine(curve, P.point_limbs(kernels.pdouble_points(pa))) == \
+        [ec_host.aff_add(curve, u, u) for u in a_aff]
 
 
+def _affine(curve, limbs):
+    x, y, inf = P.to_affine(P.point_from_limbs(curve, limbs))
+    return [None if i else (xv, yv) for xv, yv, i in
+            zip(F.fe_to_ints(x), F.fe_to_ints(y), inf.tolist())]
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_padd_chain_matches_plain(dev, name):
+    curve = get_curve(name)
+    a = _points(curve, 1, B, dev)
+    b = _points(curve, 2, B, dev)
+    out = kernels.padd_chain(curve, a, b, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.padd_chain_plain(curve, a, b, 5))
+
+
+@pytest.mark.parametrize("name", CURVES)
 @pytest.mark.parametrize("field", ["fp", "fn"])
-def test_pow_matches_plain(dev, k256, field):
-    spec = k256.field if field == "fp" else k256.scalar
+def test_pow_matches_plain(dev, name, field):
+    curve = get_curve(name)
+    spec = curve.field if field == "fp" else curve.scalar
     rng = np.random.default_rng(3)
     xs = [int(v) * 0x9E3779B97F4A7C15 % spec.p for v in rng.integers(1, 2**62, B)]
     x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
@@ -81,18 +120,39 @@ def test_ladder_matches_plain(dev, k256, glv):
     assert torch.equal(out, kernels.ladder_plain(k256, bases, mag, neg, glv=glv))
 
 
+def test_ladder_without_glv_matches_plain(dev):
+    """P-256 (no endomorphism): the verify's two-term ladder, T = 2 on 65
+    windows as ladder_inputs makes them; a glv launch is refused."""
+    p256 = get_curve("p256")
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    rng = np.random.default_rng(6)
+    Q = P.point_from_limbs(p256, _points(p256, 11, B, dev))
+    ks = [SM.pack_scalars(p256, [int.from_bytes(rng.bytes(32), "big") for _ in range(B)],
+                          dev) for _ in range(2)]
+    bases, mag, neg = SM.ladder_inputs([(P.generator(p256, (B,), dev), ks[0]), (Q, ks[1])])
+    assert mag.shape == (65, 2, B)
+    out = kernels.ladder(p256, bases, mag, neg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.ladder_plain(p256, bases, mag, neg))
+    with pytest.raises(ValueError):
+        kernels.ladder(p256, bases, mag, neg, glv=True)
+
+
+@pytest.mark.parametrize("name", CURVES)
 @pytest.mark.parametrize("b", [256, 4096])
-def test_genmul_matches_plain(dev, k256, b):
+def test_genmul_matches_plain(dev, name, b):
+    curve = get_curve(name)
     from tpu_ecc_torch.ops import scalarmul as SM
 
     rng = np.random.default_rng(5)
-    ks = [0, k256.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(b - 2)]
-    mag, neg = SM.signed_digits(k256, SM.pack_scalars(k256, ks, dev))
-    tbl = SM._gen_table(k256, dev)
+    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(b - 2)]
+    mag, neg = SM.signed_digits(curve, SM.pack_scalars(curve, ks, dev))
+    tbl = SM._gen_table(curve, dev)
     mag, neg = mag.flip(0), neg.flip(0)
-    out = kernels.genmul(k256, tbl, mag, neg)
+    out = kernels.genmul(curve, tbl, mag, neg)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.genmul_plain(k256, tbl, mag, neg))
+    assert torch.equal(out, kernels.genmul_plain(curve, tbl, mag, neg))
 
 
 def _window_group(curve, dev, N, L, w, signed, windows):

@@ -8,6 +8,10 @@ same steady inputs (tolerance: exact):
 - the plain torch path (ops/fe.py, ops/points.py) that the kernels' twins use;
 - the generated `__host__ __device__` C++ compiled with g++ into a host
   harness: the only check of the CUDA kernels' own arithmetic without a card.
+
+Each runs on secp256k1 (a = 0, solinas base field) and on P-256 (a = -3,
+Montgomery base field, no endomorphism); the secp256k1 cases keep their
+bare ids.
 """
 
 import shutil
@@ -19,12 +23,16 @@ import torch
 
 from tpu_ecc_torch.curves.specs import get_curve
 from tpu_ecc_torch.ops import fe as F
+from tpu_ecc_torch.ops import kernels
 from tpu_ecc_torch.ops import kfe
 from tpu_ecc_torch.ops import points as P
 from tpu_ecc_torch.utils.bigint import ints_to_limbs_np
 
 CURVE = get_curve("secp256k1")
-NAMES = list(kfe.function_table(CURVE))
+CURVES = ("secp256k1", "p256")
+NAMES = {c: list(kfe.function_table(get_curve(c))) for c in CURVES}
+CASES = [pytest.param(c, name, id=name if c == "secp256k1" else f"{c}-{name}")
+         for c in CURVES for name in NAMES[c]]
 B = 8
 
 
@@ -40,10 +48,10 @@ def _field_limbs(spec, rng):
     return ints_to_limbs_np(vals, spec.n_limbs, spec.limb_bits)
 
 
-def _inputs(name, seed):
+def _inputs(curve, name, seed):
     rng = np.random.default_rng(seed)
-    params, _ = kfe.function_table(CURVE)[name]
-    spec = CURVE.scalar if name.startswith("fn_") else CURVE.field
+    params, _ = kfe.function_table(curve)[name]
+    spec = curve.scalar if name.startswith("fn_") else curve.field
     out = []
     for _, cnt in params:
         parts = [_field_limbs(spec, rng) for _ in range(cnt // spec.n_limbs)]
@@ -51,38 +59,41 @@ def _inputs(name, seed):
     return out
 
 
-def _torch(name, args):
+def _torch(curve, name, args):
     """The plain torch path's result for the generated function `name`."""
     t = [torch.from_numpy(a.astype(np.int64)) for a in args]
-    f = CURVE.scalar if name.startswith("fn_") else CURVE.field
+    f = curve.scalar if name.startswith("fn_") else curve.field
     if name in ("padd", "pdouble"):
-        pts = [P.point_from_limbs(CURVE, a.reshape(3, f.n_limbs, B)) for a in t]
+        pts = [P.point_from_limbs(curve, a.reshape(3, f.n_limbs, B)) for a in t]
         out = P.padd(*pts) if name == "padd" else P.pdouble(*pts)
         return P.point_limbs(P.steady(out)).reshape(-1, B)
     if name == "padd_mixed":
-        acc = P.point_from_limbs(CURVE, t[0].reshape(3, f.n_limbs, B))
+        acc = P.point_from_limbs(curve, t[0].reshape(3, f.n_limbs, B))
         out = P.padd_mixed(acc, F.fe_steady(f, t[1]), F.fe_steady(f, t[2]))
         return P.point_limbs(P.steady(out)).reshape(-1, B)
     xs = [F.fe_steady(f, a) for a in t]
     op = name.split("_", 1)[1]
     if op == "mul_beta":
-        beta = F.fe_from_int(f, CURVE.glv["beta"], (B,), "cpu")
+        beta = F.fe_from_int(f, curve.glv["beta"], (B,), "cpu")
         return F.fmul(beta, xs[0]).limbs
     out = {"mul": lambda: F.fmul(*xs), "sqr": lambda: F.fsquare(xs[0]),
            "neg": lambda: F.fneg(xs[0])}[op]()
     return F.fsteady(out).limbs
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_numpy_engine_equals_torch(name):
-    args = _inputs(name, 1)
-    got = kfe.evaluate(CURVE, name, *args)
-    np.testing.assert_array_equal(got, _torch(name, args).numpy().astype(np.uint32))
+@pytest.mark.parametrize("cname, name", CASES)
+def test_numpy_engine_equals_torch(cname, name):
+    curve = get_curve(cname)
+    args = _inputs(curve, name, 1)
+    got = kfe.evaluate(curve, name, *args)
+    np.testing.assert_array_equal(got, _torch(curve, name, args).numpy().astype(np.uint32))
 
 
-@pytest.mark.parametrize("which", ["field", "scalar"])
-def test_numpy_steady_equals_torch(which):
-    spec = getattr(CURVE, which)
+@pytest.mark.parametrize("cname, which", [
+    pytest.param(c, w, id=w if c == "secp256k1" else f"{c}-{w}")
+    for c in CURVES for w in ("field", "scalar")])
+def test_numpy_steady_equals_torch(cname, which):
+    spec = getattr(get_curve(cname), which)
     rng = np.random.default_rng(2)
     x, y = _field_limbs(spec, rng), _field_limbs(spec, rng)
     k = kfe.ksteady(kfe.kadd(kfe.kfe_from_rows(spec, list(x)),
@@ -113,8 +124,28 @@ def test_instruction_count_fuses():
 
 
 def test_formulas_not_ported_raise():
+    """The generic-a formulas (the brainpool r1 curves) are not ported."""
     with pytest.raises(NotImplementedError):
-        kfe.kernel_header(get_curve("p256"), ["padd"])
+        kfe.kernel_header(get_curve("bp256r1"), ["padd"])
+
+
+def test_ladder_functions_follow_the_endomorphism():
+    """The ladder takes beta * x (and its header defines KFE_HAS_BETA) only
+    for a curve with an endomorphism; every kernel's header generates for
+    P-256, which has none."""
+    k256, p256 = get_curve("secp256k1"), get_curve("p256")
+    assert "fp_mul_beta" in kernels.functions("ladder", k256)
+    assert "fp_mul_beta" not in kernels.functions("ladder", p256)
+    assert "fp_mul_beta" not in kfe.function_table(p256)
+    header, counts = kfe.kernel_header(p256, kernels.functions("ladder", p256))
+    assert "KFE_HAS_BETA" not in header and set(counts) == {"padd", "pdouble", "fp_neg"}
+    assert "#define KFE_HAS_BETA 1" in kfe.kernel_header(
+        k256, kernels.functions("ladder", k256))[0]
+    for name in kernels.KERNELS:
+        header, counts = kfe.kernel_header(p256, kernels.functions(name, p256))
+        assert "#define KFE_FP_N 21" in header and all(sum(c.values()) > 0
+                                                       for c in counts.values())
+    assert kernels.work("ladder", p256, 8, T=2, nw=65, glv=False)[0]["imad"] > 0
 
 
 _HARNESS = """\
@@ -143,17 +174,30 @@ _CASE = """\
 
 
 @pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+def harnesses(tmp_path_factory):
+    """The g++ harness of each curve, built at first use."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++")
-    d = tmp_path_factory.mktemp("kfe")
-    header, counts = kfe.kernel_header(CURVE, NAMES)
-    assert set(counts) == set(NAMES) and all(sum(c.values()) > 0 for c in counts.values())
+    built = {}
+
+    def get(cname):
+        if cname not in built:
+            built[cname] = _build_harness(gxx, tmp_path_factory.mktemp(f"kfe-{cname}"),
+                                          get_curve(cname))
+        return built[cname]
+
+    return get
+
+
+def _build_harness(gxx, d, curve):
+    names = list(kfe.function_table(curve))
+    header, counts = kfe.kernel_header(curve, names)
+    assert set(counts) == set(names) and all(sum(c.values()) > 0 for c in counts.values())
     (d / "kfe_all.cuh").write_text(header)
     cases = []
-    for name in NAMES:
-        params, _ = kfe.function_table(CURVE)[name]
+    for name in names:
+        params, _ = kfe.function_table(curve)[name]
         decls = "".join(
             f"      uint32_t {p}[{c}];\n"
             f"      for (int i = 0; i < {c}; ++i) if (scanf(\"%u\", &{p}[i]) != 1) return 4;\n"
@@ -167,12 +211,13 @@ def harness(tmp_path_factory):
     return exe
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_generated_cpp_equals_numpy(harness, name):
-    args = _inputs(name, 3)
+@pytest.mark.parametrize("cname, name", CASES)
+def test_generated_cpp_equals_numpy(harnesses, cname, name):
+    curve = get_curve(cname)
+    args = _inputs(curve, name, 3)
     lanes = [" ".join(str(int(v)) for a in args for v in a[:, lane]) for lane in range(B)]
-    res = subprocess.run([str(harness), name], input=f"{B}\n" + "\n".join(lanes),
+    res = subprocess.run([str(harnesses(cname)), name], input=f"{B}\n" + "\n".join(lanes),
                          capture_output=True, text=True, check=True)
     got = np.array([[int(v) for v in ln.split()] for ln in res.stdout.splitlines()],
                    np.uint32).T
-    np.testing.assert_array_equal(got, kfe.evaluate(CURVE, name, *args))
+    np.testing.assert_array_equal(got, kfe.evaluate(curve, name, *args))

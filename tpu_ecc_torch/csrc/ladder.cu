@@ -14,7 +14,10 @@
 // beta * X for the odd GLV terms after the select (:991-992), a masked
 // y-negation, and an add. With H == 1 the first window seeds the
 // accumulator from the selected entry instead of adding it to O (:999-1007),
-// for limb parity with the plain ladder.
+// for limb parity with the plain ladder. The GLV branch is compiled only
+// where the generated header defines KFE_HAS_BETA (a curve with an
+// endomorphism, such as secp256k1); elsewhere (P-256) a glv launch is
+// refused before it starts.
 //
 // Bound: operations — per window 4 doublings (~11.2k 32-bit integer
 // operations each) and H adds (~18.7k each), from the generator's counts.
@@ -92,10 +95,12 @@ __global__ void ladder_kernel(const uint32_t* __restrict__ bases,
           sel[j] = hit ? v : sel[j];
         }
       }
+#ifdef KFE_HAS_BETA
       if (glv && (h & 1)) {  // psi(x, y) = (beta * x, y) after the select
         kfe_fp_mul_beta(sel, tmp);
         for (int i = 0; i < N; ++i) sel[i] = tmp[i];
       }
+#endif
       kfe_fp_neg(sel + N, tmp);
       for (int i = 0; i < N; ++i) sel[N + i] = ng ? tmp[i] : sel[N + i];
       if (H == 1 && w == 0) {
@@ -115,6 +120,12 @@ extern "C" int ladder_launch(const void* bases, const void* mag,
                              const void* neg, void* out, void* tbl, int T,
                              int H, int nw, int glv, int B, int* launched,
                              void* stream) {
+#ifndef KFE_HAS_BETA
+  if (glv) {  // the curve has no endomorphism: no psi to apply
+    *launched = 0;
+    return (int)cudaErrorInvalidValue;
+  }
+#endif
   ladder_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                   (cudaStream_t)stream>>>(
       (const uint32_t*)bases, (const uint32_t*)mag, (const uint32_t*)neg,

@@ -11,10 +11,15 @@ the plain PyTorch twin beside each.
 | `fixup`      | csrc/fixup.cu      | `fixup_call` :647                        |
 | `bucket_reduce` | csrc/bucket_reduce.cu | `bucket_reduce_call` :733             |
 | `horner`     | csrc/horner.cu     | `horner_call` :814                       |
+| `padd`       | csrc/padd.cu       | `_padd_call` :379                        |
+| `pdouble`    | csrc/pdouble.cu    | `_pdouble_call` :403                     |
 
 Each kernel runs one thread per batch lane over limb-major [.., n, B] uint32
 arrays, and calls straight-line field and point functions that ops/kfe.py
-generates from the KFE bound ledger into a header per (curve, kernel). The
+generates from the KFE bound ledger into a header per (curve, kernel):
+the a = 0 formulas for secp256k1, the a = -3 ones for P-256 and the other
+a = -3 curves, and the GLV multiply by beta only for a curve that has an
+endomorphism (`functions`). The
 build is nvcc by hand into a shared library with a plain C interface, bound
 with ctypes, at first use (or by `build`) into build/kernels/ beside the
 package; a content hash of the source, the header and the flags names the
@@ -63,13 +68,17 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, generated functions, C entry point, its argtypes before
 #          the launch count and the stream, the TPU kernel it replaces)
 KERNELS = {
+    "padd": ("padd.cu", ("padd",), "padd_launch", [_VP, _VP, _VP, _I],
+             "tpu_ecc/ops/pallas_kernels.py:379"),
+    "pdouble": ("pdouble.cu", ("pdouble",), "pdouble_launch", [_VP, _VP, _I],
+                "tpu_ecc/ops/pallas_kernels.py:403"),
     "padd_chain": ("padd_chain.cu", ("padd",), "padd_chain_launch",
                    [_VP, _VP, _VP, _I, _I],
                    "tpu_ecc/ops/pallas_kernels.py:426"),
     "pow": ("pow.cu", ("fp_mul", "fp_sqr", "fn_mul", "fn_sqr"), "pow_launch",
             [_VP, _VP, _VP, _VP, _I, _I, _I],
             "tpu_ecc/ops/pallas_kernels.py:1140"),
-    "ladder": ("ladder.cu", ("padd", "pdouble", "fp_neg", "fp_mul_beta"),
+    "ladder": ("ladder.cu", ("padd", "pdouble", "fp_neg"),
                "ladder_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:887"),
     "genmul": ("genmul.cu", ("padd_mixed", "fp_neg"), "genmul_launch",
@@ -116,10 +125,17 @@ def _nvcc() -> str:
     return found
 
 
+def functions(name: str, curve: CurveSpec) -> tuple:
+    """The generated functions kernel `name` takes for `curve`: the ladder
+    takes beta * x (psi) only where the curve has an endomorphism."""
+    glv = ("fp_mul_beta",) if name == "ladder" and curve.glv else ()
+    return KERNELS[name][1] + glv
+
+
 def _target(name: str, curve: CurveSpec):
     """(library path, build directory, generated header) for one kernel."""
-    src_file, funcs = KERNELS[name][:2]
-    header, _ = kfe.kernel_header(curve, funcs)
+    src_file = KERNELS[name][0]
+    header, _ = kfe.kernel_header(curve, functions(name, curve))
     with open(os.path.join(CSRC, src_file)) as fh:
         src = fh.read()
     key = hashlib.sha256("\0".join((header, src) + NVCC_FLAGS).encode())
@@ -128,15 +144,23 @@ def _target(name: str, curve: CurveSpec):
 
 
 def build(curve: CurveSpec, names=None) -> dict:
-    """Build the kernels `names` (default: all) for `curve`, one nvcc process
-    per source, all started together, and bind them. Returns {name: nvcc's
-    report} for the kernels built now (ptxas registers, spills); a library
-    already built from the same source, header and flags is reused."""
+    """Build the kernels `names` (default: all) for `curve` and bind them.
+    Returns {name: nvcc's report} for the kernels built now (`build_targets`)."""
     names = list(KERNELS) if names is None else list(names)
+    reports = build_targets([(curve, name) for name in names])
+    return {name: rep for (_, name), rep in reports.items()}
+
+
+def build_targets(targets) -> dict:
+    """Build the kernels of targets = [(curve, name), ...], one nvcc process
+    per (curve, kernel), all started together, and bind them. Returns
+    {(curve name, kernel name): nvcc's report} for the kernels built now
+    (ptxas registers, spills); a library already built from the same
+    source, header and flags is reused."""
     jobs = {}
-    for name in names:
+    for curve, name in targets:
         so, d, header = _target(name, curve)
-        if os.path.exists(so):
+        if os.path.exists(so) or (curve.name, name) in jobs:
             continue
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
@@ -146,19 +170,19 @@ def build(curve: CurveSpec, names=None) -> dict:
                os.path.join(CSRC, KERNELS[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (so, tmp, proc)
+        jobs[curve.name, name] = (so, tmp, proc)
     reports, failed = {}, []
-    for name, (so, tmp, proc) in jobs.items():
-        reports[name], _ = proc.communicate()
+    for key, (so, tmp, proc) in jobs.items():
+        reports[key], _ = proc.communicate()
         with open(f"{so}.log", "w") as fh:
-            fh.write(reports[name])
+            fh.write(reports[key])
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{reports[name]}")
+            failed.append(f"{key} (nvcc exit {proc.returncode}):\n{reports[key]}")
         else:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    for name in names:
+    for curve, name in targets:
         _bind(name, curve)
     return reports
 
@@ -212,6 +236,61 @@ def _curve_of(spec: F.FieldSpec):
     if (curve.field, curve.scalar)[part == "fn"] is not spec:
         raise ValueError(f"{spec} is not a registered curve's field")
     return curve, int(part == "fn")
+
+
+# ---------------------------------------------------------------------------
+# padd, pdouble: one add or one doubling per lane
+# ---------------------------------------------------------------------------
+
+def padd(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b for steady point limbs a, b [3, n, B] -> steady [3, n, B]."""
+    if a.device.type == "cpu":
+        return padd_plain(curve, a, b)
+    B = a.shape[-1]
+    shape = (3, curve.field.n_limbs, B)
+    _check(a, shape, "padd a")
+    _check(b, shape, "padd b")
+    a32, b32 = _u32(a), _u32(b)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    _launch("padd", curve, a.device, a32.data_ptr(), b32.data_ptr(),
+            out.data_ptr(), B)
+    return _from_u32(out)
+
+
+def padd_plain(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return P.add_limbs(curve, a, b)
+
+
+def pdouble(curve: CurveSpec, a: torch.Tensor) -> torch.Tensor:
+    """2a for steady point limbs a [3, n, B] -> steady [3, n, B]."""
+    if a.device.type == "cpu":
+        return pdouble_plain(curve, a)
+    B = a.shape[-1]
+    _check(a, (3, curve.field.n_limbs, B), "pdouble a")
+    a32 = _u32(a)
+    out = torch.empty(a32.shape, dtype=torch.int32, device=a.device)
+    _launch("pdouble", curve, a.device, a32.data_ptr(), out.data_ptr(), B)
+    return _from_u32(out)
+
+
+def pdouble_plain(curve: CurveSpec, a: torch.Tensor) -> torch.Tensor:
+    return P.point_limbs(P.steady(P.pdouble(P.point_from_limbs(curve, a))))
+
+
+def padd_points(a: P.Point, b: P.Point) -> P.Point:
+    """One complete add of two 1-D point batches on the `padd` kernel (its
+    twin for CPU tensors): the counterpart of tpu_ecc's padd_pallas
+    (pallas_kernels.py:1239). Returns steady coordinates."""
+    c = a.curve
+    out = padd(c, P.point_limbs(P.steady(a)), P.point_limbs(P.steady(b)))
+    return P.point_from_limbs(c, out)
+
+
+def pdouble_points(a: P.Point) -> P.Point:
+    """One doubling of a 1-D point batch on the `pdouble` kernel: the
+    counterpart of tpu_ecc's pdouble_pallas (pallas_kernels.py:1251)."""
+    c = a.curve
+    return P.point_from_limbs(c, pdouble(c, P.point_limbs(P.steady(a))))
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +385,8 @@ def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     H = T, or H = 2T with `glv`: term 2t takes base t, term 2t+1 takes
     psi(base t) = (beta*x, y), applied after the select. With H == 1 the
     first window seeds the accumulator from its selected entry."""
+    if glv and not curve.glv:
+        raise ValueError(f"{curve.name} has no endomorphism")
     if bases.device.type == "cpu":
         return ladder_plain(curve, bases, mag, neg, glv)
     T, B = bases.shape[0], bases.shape[-1]
@@ -315,8 +396,6 @@ def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     _check(bases, (T, 3, n, B), "ladder bases")
     _check(mag, (nw, H, B), "ladder mag")
     _check(neg, (nw, H, B), "ladder neg")
-    if glv and not curve.glv:
-        raise ValueError(f"{curve.name} has no endomorphism")
     b32, m32, g32 = _u32(bases), _u32(mag), _u32(neg)
     out = torch.empty((3, n, B), dtype=torch.int32, device=bases.device)
     tbl = torch.empty((T * TBL, 3, n, B), dtype=torch.int32, device=bases.device)
@@ -564,6 +643,9 @@ def op_counts(curve: CurveSpec) -> dict:
     return kfe.kernel_header(curve, names)[1]
 
 
+_NONE = dict.fromkeys(kfe.INSTRUCTION_CLASSES, 0)
+
+
 def _total(*terms) -> dict:
     """sum(k * counts) over terms = [(k, counts by class), ...]."""
     return {c: sum(k * cnt[c] for k, cnt in terms) for c in kfe.INSTRUCTION_CLASSES}
@@ -571,15 +653,19 @@ def _total(*terms) -> dict:
 
 def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
     """(32-bit integer instructions by class, bytes that must move) of one
-    call: padd_chain(repeat=), pow(field=0|1, e=), ladder(T=, nw=, glv=),
-    genmul(nw=), segscan(C=, adds=, signed=), fixup(adds=),
-    bucket_reduce(groups=), horner(nw=, w=). B is the lanes of all windows
+    call: padd(), pdouble(), padd_chain(repeat=), pow(field=0|1, e=),
+    ladder(T=, nw=, glv=), genmul(nw=), segscan(C=, adds=, signed=),
+    fixup(adds=), bucket_reduce(groups=), horner(nw=, w=). B is the lanes of all windows
     (segscan, fixup), the buckets of one window (bucket_reduce) or 1
     (horner); `adds` counts the adds that the call's data needs (rows whose
     key repeats; lanes whose partner is in their run, over all steps)."""
     c = op_counts(curve)
     n = curve.field.n_limbs
     pn = 3 * n
+    if name == "padd":
+        return _total((B, c["padd"])), 3 * pn * 4 * B
+    if name == "pdouble":
+        return _total((B, c["pdouble"])), 2 * pn * 4 * B
     if name == "padd_chain":
         return _total((kw["repeat"] * B, c["padd"])), 3 * pn * 4 * B
     if name == "pow":
@@ -599,7 +685,7 @@ def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
         adds = T * (TBL - 2) + nw * H - (1 if H == 1 else 0)
         ops = _total((adds * B, c["padd"]), (4 * nw * B, c["pdouble"]),
                      (nw * H * B, select), (nw * H * B, c["fp_neg"]),
-                     (nw * T * B if glv else 0, c["fp_mul_beta"]))
+                     (nw * T * B if glv else 0, c.get("fp_mul_beta", _NONE)))
         return ops, (T * pn + 2 * nw * H + pn) * 4 * B
     if name == "genmul":
         nw = kw["nw"]

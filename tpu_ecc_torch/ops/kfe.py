@@ -590,7 +590,7 @@ def _ksquare(x: KFE) -> KFE:
 
 
 # ---------------------------------------------------------------------------
-# RCB 2015 formulas on KFE (tpu_ecc pallas_kernels.py:39-104)
+# RCB 2015 formulas on KFE (tpu_ecc pallas_kernels.py:39-225)
 # ---------------------------------------------------------------------------
 
 def _b3_mul_k(curve, t: KFE) -> KFE:
@@ -598,6 +598,14 @@ def _b3_mul_k(curve, t: KFE) -> KFE:
     if curve.field.kind == "solinas" and b3 < (1 << 14):
         return kmul_small(t, b3)
     return kmul(kfe_const(curve.field, b3, t.limbs[0]), t)
+
+
+def _b_mul_k(curve, t: KFE) -> KFE:
+    """b * t; b enters in the field's own encoding (Montgomery form on a
+    Montgomery field, `kfe_const`)."""
+    if curve.field.kind == "solinas" and curve.b < (1 << 14):
+        return kmul_small(t, curve.b)
+    return kmul(kfe_const(curve.field, curve.b, t.limbs[0]), t)
 
 
 def _kadd_a0(c, X1, Y1, Z1, X2, Y2, Z2):
@@ -676,9 +684,103 @@ def _kdouble_a0(c, X, Y, Z):
     return X3, Y3, Z3
 
 
-_KADD = {"a0": _kadd_a0}
-_KADD_MIXED = {"a0": _kadd_mixed_a0}
-_KDOUBLE = {"a0": _kdouble_a0}
+def _kadd_am3(c, X1, Y1, Z1, X2, Y2, Z2):
+    """RCB 2015 Algorithm 4 (a = -3)."""
+    t0 = X1 * X2
+    t1 = Y1 * Y2
+    t2 = Z1 * Z2
+    t3 = (X1 + Y1) * (X2 + Y2)
+    t3 = t3 - (t0 + t1)
+    t4 = (Y1 + Z1) * (Y2 + Z2)
+    t4 = t4 - (t1 + t2)
+    X3 = (X1 + Z1) * (X2 + Z2)
+    Y3 = X3 - (t0 + t2)
+    Z3 = _b_mul_k(c, t2)
+    X3 = Y3 - Z3
+    Z3 = X3 + X3
+    X3 = X3 + Z3
+    Z3 = t1 - X3
+    X3 = t1 + X3
+    Y3 = _b_mul_k(c, Y3)
+    t1 = t2 + t2 + t2
+    Y3 = Y3 - t1 - t0
+    Y3 = Y3 + Y3 + Y3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t1
+    t1 = t4 * Y3
+    t2 = t0 * Y3
+    Y3 = X3 * Z3 + t2
+    X3 = t3 * X3 - t1
+    Z3 = t4 * Z3 + t3 * t0
+    return X3, Y3, Z3
+
+
+def _kdouble_am3(c, X, Y, Z):
+    """RCB 2015 Algorithm 6 (a = -3)."""
+    t0 = X * X
+    t1 = Y * Y
+    t2 = Z * Z
+    t3 = X * Y
+    t3 = t3 + t3
+    Z3 = X * Z
+    Z3 = Z3 + Z3
+    Y3 = _b_mul_k(c, t2)
+    Y3 = Y3 - Z3
+    X3 = Y3 + Y3
+    Y3 = X3 + Y3
+    X3 = t1 - Y3
+    Y3 = t1 + Y3
+    Y3 = X3 * Y3
+    X3 = X3 * t3
+    t2 = t2 + t2 + t2
+    Z3 = _b_mul_k(c, Z3)
+    Z3 = Z3 - t2 - t0
+    Z3 = Z3 + Z3 + Z3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t2
+    t0 = t0 * Z3
+    Y3 = Y3 + t0
+    t0 = Y * Z
+    t0 = t0 + t0
+    Z3 = t0 * Z3
+    X3 = X3 - Z3
+    Z3 = t0 * t1
+    Z3 = Z3 + Z3
+    Z3 = Z3 + Z3
+    return X3, Y3, Z3
+
+
+def _kadd_mixed_am3(c, X1, Y1, Z1, x2, y2):
+    """RCB 2015 Algorithm 5 (a = -3, Z2 = 1)."""
+    t0 = X1 * x2
+    t1 = Y1 * y2
+    t3 = (x2 + y2) * (X1 + Y1)
+    t3 = t3 - (t0 + t1)
+    t4 = y2 * Z1 + Y1
+    Y3 = x2 * Z1 + X1
+    Z3 = _b_mul_k(c, Z1)
+    X3 = Y3 - Z3
+    Z3 = X3 + X3
+    X3 = X3 + Z3
+    Z3 = t1 - X3
+    X3 = t1 + X3
+    Y3 = _b_mul_k(c, Y3)
+    t1 = Z1 + Z1 + Z1
+    Y3 = Y3 - t1 - t0
+    Y3 = Y3 + Y3 + Y3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t1
+    t1 = t4 * Y3
+    t2 = t0 * Y3
+    Y3 = X3 * Z3 + t2
+    X3 = t3 * X3 - t1
+    Z3 = t4 * Z3 + t3 * t0
+    return X3, Y3, Z3
+
+
+_KADD = {"a0": _kadd_a0, "a_minus3": _kadd_am3}
+_KADD_MIXED = {"a0": _kadd_mixed_a0, "a_minus3": _kadd_mixed_am3}
+_KDOUBLE = {"a0": _kdouble_a0, "a_minus3": _kdouble_am3}
 
 
 def _formula(table: dict, curve):
@@ -817,12 +919,14 @@ def function_table(curve) -> dict:
 
 def kernel_header(curve, names) -> tuple[str, dict]:
     """C++ header for `curve` with the generated functions `names`, each
-    named `kfe_<name>`, the limb counts KFE_FP_N / KFE_FN_N and each field's
-    encoded one. Returns (source, {name: instruction counts by class})."""
+    named `kfe_<name>`, the limb counts KFE_FP_N / KFE_FN_N, KFE_HAS_BETA
+    where `fp_mul_beta` is among them, and each field's encoded one.
+    Returns (source, {name: instruction counts by class})."""
     f, s = curve.field, curve.scalar
     parts = [_PREAMBLE,
              f"// curve: {curve.name}\n"
              f"#define KFE_FP_N {f.n_limbs}\n#define KFE_FN_N {s.n_limbs}\n",
+             "#define KFE_HAS_BETA 1\n" if "fp_mul_beta" in names else "",
              _const_function("kfe_fp_one",
                              int_to_limbs(f.encode_int(1), f.n_limbs, f.limb_bits)),
              _const_function("kfe_fn_one",

@@ -2,9 +2,11 @@
 
 Homogeneous projective coordinates (X : Y : Z), identity = (0 : 1 : 0), on
 int64 limb tensors — the torch port of tpu_ecc/ops/points.py, limb-equal with
-it. This slice carries the a = 0 formulas (RCB 2015 Algorithms 7/8/9, the
-secp256k1 path, b3 = 21 as a small-constant multiply); the a = -3 and
-generic-a strategies raise NotImplementedError until their slice.
+it. It carries the a = 0 formulas (RCB 2015 Algorithms 7/8/9, the secp256k1
+path, b3 = 21 as a small-constant multiply) and the a = -3 ones (Algorithms
+4/5/6: P-256, P-384, P-521, P-224, SM2, bign256 and the brainpool t1 curves,
+b as a full field multiply); the generic-a strategy (the brainpool r1
+curves) raises NotImplementedError until its slice.
 
 The formulas are exception-free on prime-order short-Weierstrass curves, so
 identity and doubling cases need no branches. A point batch is three FE limb
@@ -196,6 +198,114 @@ def _b3_mul(curve: CurveSpec, t: FE) -> FE:
     return F.fmul(F.fe_from_int(curve.field, b3, t.batch_shape, t.device), t)
 
 
+def _b_mul(curve: CurveSpec, t: FE) -> FE:
+    if curve.field.kind == "solinas" and curve.b < (1 << 14):
+        return F.fmul_small(t, curve.b)
+    return F.fmul(F.fe_from_int(curve.field, curve.b, t.batch_shape, t.device), t)
+
+
+# ---------------------------------------------------------------------------
+# RCB 2015 Algorithms 4-6: a = -3
+# ---------------------------------------------------------------------------
+
+def _add_am3(P: Point, Q: Point) -> Point:
+    c = P.curve
+    X1, Y1, Z1 = P.x, P.y, P.z
+    X2, Y2, Z2 = Q.x, Q.y, Q.z
+    t0 = X1 * X2
+    t1 = Y1 * Y2
+    t2 = Z1 * Z2
+    t3 = (X1 + Y1) * (X2 + Y2)
+    t3 = t3 - (t0 + t1)
+    t4 = (Y1 + Z1) * (Y2 + Z2)
+    t4 = t4 - (t1 + t2)
+    X3 = (X1 + Z1) * (X2 + Z2)
+    Y3 = X3 - (t0 + t2)
+    Z3 = _b_mul(c, t2)
+    X3 = Y3 - Z3
+    Z3 = X3 + X3
+    X3 = X3 + Z3
+    Z3 = t1 - X3
+    X3 = t1 + X3
+    Y3 = _b_mul(c, Y3)
+    t1 = t2 + t2 + t2
+    Y3 = Y3 - t1 - t0
+    Y3 = Y3 + Y3 + Y3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t1
+    t1 = t4 * Y3
+    t2 = t0 * Y3
+    Y3 = X3 * Z3 + t2
+    X3 = t3 * X3 - t1
+    Z3 = t4 * Z3 + t3 * t0
+    return Point(X3, Y3, Z3, c)
+
+
+def _add_mixed_am3(P: Point, x2: FE, y2: FE) -> Point:
+    c = P.curve
+    X1, Y1, Z1 = P.x, P.y, P.z
+    t0 = X1 * x2
+    t1 = Y1 * y2
+    t3 = (x2 + y2) * (X1 + Y1)
+    t3 = t3 - (t0 + t1)
+    t4 = y2 * Z1 + Y1
+    Y3 = x2 * Z1 + X1
+    Z3 = _b_mul(c, Z1)
+    X3 = Y3 - Z3
+    Z3 = X3 + X3
+    X3 = X3 + Z3
+    Z3 = t1 - X3
+    X3 = t1 + X3
+    Y3 = _b_mul(c, Y3)
+    t1 = Z1 + Z1 + Z1
+    Y3 = Y3 - t1 - t0
+    Y3 = Y3 + Y3 + Y3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t1
+    t1 = t4 * Y3
+    t2 = t0 * Y3
+    Y3 = X3 * Z3 + t2
+    X3 = t3 * X3 - t1
+    Z3 = t4 * Z3 + t3 * t0
+    return Point(X3, Y3, Z3, c)
+
+
+def _double_am3(P: Point) -> Point:
+    c = P.curve
+    X, Y, Z = P.x, P.y, P.z
+    t0 = X * X
+    t1 = Y * Y
+    t2 = Z * Z
+    t3 = X * Y
+    t3 = t3 + t3
+    Z3 = X * Z
+    Z3 = Z3 + Z3
+    Y3 = _b_mul(c, t2)
+    Y3 = Y3 - Z3
+    X3 = Y3 + Y3
+    Y3 = X3 + Y3
+    X3 = t1 - Y3
+    Y3 = t1 + Y3
+    Y3 = X3 * Y3
+    X3 = X3 * t3
+    t2 = t2 + t2 + t2
+    Z3 = _b_mul(c, Z3)
+    Z3 = Z3 - t2 - t0
+    Z3 = Z3 + Z3 + Z3
+    t0 = t0 + t0 + t0
+    t0 = t0 - t2
+    t0 = t0 * Z3
+    Y3 = Y3 + t0
+    t0 = Y * Z
+    t0 = t0 + t0
+    Z3 = t0 * Z3
+    X3 = X3 - Z3
+    Z3 = t0 * t1
+    Z3 = Z3 + Z3
+    Z3 = Z3 + Z3
+    return Point(X3, Y3, Z3, c)
+
+
 # ---------------------------------------------------------------------------
 # RCB 2015 Algorithms 7-9: a = 0 (k256 path)
 # ---------------------------------------------------------------------------
@@ -284,9 +394,9 @@ def _double_a0(P: Point) -> Point:
 # dispatch
 # ---------------------------------------------------------------------------
 
-_ADD = {"a0": _add_a0}
-_ADD_MIXED = {"a0": _add_mixed_a0}
-_DOUBLE = {"a0": _double_a0}
+_ADD = {"a0": _add_a0, "a_minus3": _add_am3}
+_ADD_MIXED = {"a0": _add_mixed_a0, "a_minus3": _add_mixed_am3}
+_DOUBLE = {"a0": _double_a0, "a_minus3": _double_am3}
 
 
 def _formula(table: dict, curve: CurveSpec):
