@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (csrc/, sm_90a) from the checkout, one nvcc per
-   source and curve, all started together: all ten for secp256k1 and the
-   six of the P-256 path (padd, pdouble, padd_chain, pow, ladder, genmul);
-   then the native signing code (g++). Prints the seconds it took and
-   ptxas's registers and stack for each.
+   source and target, all started together (23 in all): the ten of the
+   main path for secp256k1, the six of the P-256 path (padd, pdouble,
+   padd_chain, pow, ladder, genmul) for p256, and the seven of the probes
+   (dma_gather; fmul_chain for the fields of secp256k1, P-256 and
+   secp256k1 forced onto Montgomery, k256mxu.fp; mxu_chain for the two
+   Montgomery fields; ladder_probe for secp256k1); then the native signing
+   code (g++). Prints the seconds it took and ptxas's registers and stack
+   for each.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference):
    padd_chain at B = 8192, repeat 16; pow on the scalar field (e = n - 2)
@@ -52,9 +56,19 @@
    launched. Last, one core run under torch.profiler gives the device time
    of each step of msm_pippenger (its `msm/<step>` ranges).
 8. Prints the card's name and power limit, a `kernels` JSON line (each
-   kernel and P-256 build: its launches on the main path, its error against
-   its twin, its time, its twin's time and its bound), and last a JSON line
-   with the device.
+   kernel and build: its launches on the main path or per tool run, its
+   error against its twin, its time, its twin's time, its bound and, for
+   dma_gather, the time of index_select over the same rows), and last a
+   JSON line with the device.
+9. Probes (run after step 7, before the record of step 8): holds the four
+   probe kernels against their twins at the tools' shapes (exact): dma_gather
+   (N = 2^20, W = 128, M = 2^18, Cb = 4096 at depth 8, 2 and 16, and Cb =
+   256 at depth 8),
+   fmul_chain on the three fields and mxu_chain on the two Montgomery ones
+   at B = 8192, ladder_probe's five variants at B = 4096 on 34 windows.
+   Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
+   default sizes, each with the counts set to 0 just before and read just
+   after, and prints what each probe answered.
 
 Any mismatch or fault raises, so the exit code is not 0. Without a CUDA
 device it exits with code 1 and prints no result.
@@ -71,6 +85,7 @@ import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (the same)
 # CUDA C++ Programming Guide, arithmetic instruction throughput, compute
 # capability 9.0: 64 results per clock per SM for each class of 32-bit
 # integer instruction (add, multiply and multiply-add, shift, compare,
@@ -87,14 +102,22 @@ MSM_POINTS = 1 << 20
 MSM_RUNS = 5
 MSM_W, MSM_LANES = 14, 8192       # msm()'s defaults at 2^20 points
 STRAUS_POINTS = 4096
+# the kernels of the main path, built for secp256k1
+K256_KERNELS = ("padd", "pdouble", "padd_chain", "pow", "ladder", "genmul", "segscan",
+                "fixup", "bucket_reduce", "horner")
 # the kernels of the P-256 path (the MSM's are built for secp256k1 only)
 P256_KERNELS = ("padd", "pdouble", "padd_chain", "pow", "ladder", "genmul")
+GATHER_N, GATHER_W, GATHER_M, GATHER_CB = 1 << 20, 128, 1 << 18, 1 << 12
+PROBE_B, LADDER_B = 8192, 4096      # the multiply probes' lanes, the ladder's
+CHAIN_REPS = 200                    # timed launches of a multiply chain (~0.1 ms each)
+CHAIN_PAIRS = 10                    # fmul_chain against mxu_chain, in turns
 
 
-def row_name(name: str, curve) -> str:
-    """A kernel's name in the record: bare for secp256k1, else with the
-    curve of its build, as in `ladder[p256]`."""
-    return name if curve.name == "secp256k1" else f"{name}[{curve.name}]"
+def row_name(name: str, target) -> str:
+    """A kernel's name in the record: bare for secp256k1 and for a kernel
+    with no target, else with the curve or field of its build, as in
+    `ladder[p256]` or `mxu_chain[k256mxu.fp]`."""
+    return name if target is None or target.name == "secp256k1" else f"{name}[{target.name}]"
 
 
 def smi(query: str) -> str:
@@ -106,12 +129,14 @@ def smi(query: str) -> str:
 
 def op_seconds(ops: dict, clock_hz: float) -> float:
     """The least time the card takes for `ops` (instructions by class, see
-    kfe.INSTRUCTION_CLASSES): the multiplies on the FMA pipe and the logic
-    on the ALU pipe each at 64 per clock per SM, and all of them within the
-    issue rate of 128 per clock per SM."""
+    kfe.INSTRUCTION_CLASSES, and int8 tensor-core operations under "int8"):
+    the multiplies on the FMA pipe and the logic on the ALU pipe each at 64
+    per clock per SM, all of them within the issue rate of 128 per clock per
+    SM, and the int8 operations at the dense int8 rate; the larger of the
+    two parts."""
     per_sm = max(ops["imad"] / INT32_PER_CLK_PER_SM, ops["alu"] / INT32_PER_CLK_PER_SM,
-                 sum(ops.values()) / ISSUE_PER_CLK_PER_SM)
-    return per_sm / (SMS * clock_hz)
+                 (ops["imad"] + ops["alu"] + ops["other"]) / ISSUE_PER_CLK_PER_SM)
+    return max(per_sm / (SMS * clock_hz), ops.get("int8", 0) / INT8_OPS_PER_S)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -383,6 +408,122 @@ def single_point_ops(curves, dev) -> dict:
     return out
 
 
+def chain_pairs(spec, a, b) -> None:
+    """fmul_chain against mxu_chain on the same inputs, CHAIN_PAIRS pairs in
+    turns (each side first in every other pair), CHAIN_REPS launches each:
+    prints each side's median, range and wins in µs per chained multiply."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    fns = {"fmul_chain": lambda: K.fmul_chain(spec, a, b),
+           "mxu_chain": lambda: K.mxu_chain(spec, a, b)}
+    us = {name: [] for name in fns}
+    for r in range(CHAIN_PAIRS):
+        for name in sorted(fns, reverse=r % 2 == 1):
+            us[name].append(1e3 * _time_ms(fns[name], CHAIN_REPS) / K.CHAIN)
+    wins = sum(m < f for m, f in zip(us["mxu_chain"], us["fmul_chain"]))
+    print(f"  {spec.name}, us per chained mul over {CHAIN_PAIRS} pairs in turns: " + ", ".join(
+        f"{name} median {np.median(v):.4f} ({min(v):.4f}-{max(v):.4f})" for name, v in us.items())
+        + f"; mxu_chain faster in {wins} of {CHAIN_PAIRS}")
+
+
+def probes(hold, fields, dev) -> dict:
+    """Step 9: each probe kernel against its twin at its tool's shapes, then
+    the three tools' main at their default sizes, the counts set to 0 just
+    before each and read just after. Returns {(target, kernel): launches
+    per tool run}."""
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.tools import bench_gather_probe, bench_mxu_mul, profile_ladder
+
+    curve = get_curve("secp256k1")
+    started = time.perf_counter()
+    print("hold: the probe kernels at their tools' shapes")
+    pay = bench_gather_probe.device_payload(GATHER_N, GATHER_W, dev)
+    idx = torch.from_numpy(np.random.default_rng(1).permutation(GATHER_N)
+                           .astype(np.int32)[:GATHER_M]).to(dev)
+    # (Cb, depth): the tool's default first (the row's time), then the
+    # other depths and the smaller chunks of the tool's last two lines
+    for Cb, depth in ((GATHER_CB, 8), (GATHER_CB, 2), (GATHER_CB, 16), (256, 8)):
+        hold("dma_gather", f"N=2^20 W={GATHER_W} M=2^18 Cb={Cb} depth={depth}",
+             lambda: K.dma_gather(pay, idx, Cb, depth),
+             lambda: K.dma_gather_plain(pay, idx), 10, B=GATHER_W, c=None,
+             library=lambda: torch.index_select(pay, 0, idx), M=GATHER_M)
+    del pay
+    rng = np.random.default_rng(9)
+    for spec in fields:
+        vals = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(PROBE_B)]
+        a = F.fe_from_ints(spec, vals, dev).limbs
+        b = F.fe_from_ints(spec, vals[::-1], dev).limbs
+        hold("fmul_chain", f"{spec.name} B={PROBE_B}", lambda: K.fmul_chain(spec, a, b),
+             lambda: K.fmul_chain_plain(spec, a, b), CHAIN_REPS, c=spec)
+        if spec.kind == "mont":
+            hold("mxu_chain", f"{spec.name} B={PROBE_B}", lambda: K.mxu_chain(spec, a, b),
+                 lambda: K.mxu_chain_plain(spec, a, b), CHAIN_REPS, c=spec)
+            chain_pairs(spec, a, b)
+    bases, mag, neg = profile_ladder.inputs(curve, LADDER_B, dev)
+    twins = {}
+
+    def ladder_twin(variant):
+        # unroll and build return bare's limbs (the same selects and adds;
+        # unroll differs in compilation, build in a table no one reads), so
+        # their twin is computed once
+        key = variant if variant in ("select", "negate") else "bare"
+        if key not in twins:
+            twins[key] = K.ladder_probe_plain(curve, bases, mag, neg, key)
+        return twins[key]
+
+    for variant in ("negate", "bare", "unroll", "build", "select"):   # the whole body first
+        hold("ladder_probe", f"{variant} nw={profile_ladder.NW} B={LADDER_B}",
+             lambda: K.ladder_probe(curve, bases, mag, neg, variant),
+             lambda: ladder_twin(variant), 3, nw=profile_ladder.NW, variant=variant)
+    del twins
+    torch.cuda.synchronize()
+
+    print("tools: bench_gather_probe, bench_mxu_mul, profile_ladder at their default sizes")
+    counts = {}
+    K.reset_launches()
+    gather = bench_gather_probe.main([])
+    counts[None, "dma_gather"] = K.launches["dma_gather"]
+    K.reset_launches()
+    muls = bench_mxu_mul.main([])
+    by_name = {f.name: f for f in fields}
+    if sorted(res["field"] for res in muls) != sorted(by_name):
+        raise AssertionError(f"bench_mxu_mul ran {[res['field'] for res in muls]}")
+    for res in muls:                # the launches of each field's cases
+        spec = by_name[res["field"]]
+        for name in ("fmul_chain", "mxu_chain") if spec.kind == "mont" else ("fmul_chain",):
+            counts[spec, name] = res["launches"].get(name, 0)
+    K.reset_launches()
+    ladder = profile_ladder.main([])
+    counts[curve, "ladder_probe"] = K.launches["ladder_probe"]
+    torch.cuda.synchronize()
+    for (t, name), v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"the tools did not launch {row_name(name, t)}")
+    print(f"  launches per tool run: {({row_name(n, t): v for (t, n), v in counts.items()})}")
+
+    take = gather["take"][GATHER_W]
+    print(f"probe answers: gather at W={GATHER_W}: index_select {take / 1e6:.2f} Mrows/s "
+          f"({take * 4 * GATHER_W / 1e9:.1f} GB/s); dma_gather at Cb={GATHER_CB}, its best "
+          f"depth {max(gather['dma_gather'].values()) / 1e6:.2f} Mrows/s; at depth 8 by Cb "
+          + ", ".join(f"{cb}: {r / 1e6:.2f}" for cb, r in gather["dma_gather_cb"].items())
+          + " Mrows/s")
+    for res in muls:
+        if "mxu_chain_s" in res:
+            print(f"  {res['field']}: per chained mul mxu_chain "
+                  f"{res['mxu_chain_s'] / K.CHAIN * 1e6:.3f} us, fmul_chain "
+                  f"{res['chain_s'] / K.CHAIN * 1e6:.3f} us")
+    v = ladder["variants"]
+    print(f"  ladder (ms): floor {v['bare'] * 1e3:.3f}, unroll "
+          f"{(v['unroll'] - v['bare']) * 1e3:+.3f}, build {(v['build'] - v['bare']) * 1e3:+.3f}, "
+          f"select {(v['select'] - v['build']) * 1e3:+.3f}, negate "
+          f"{(v['negate'] - v['select']) * 1e3:+.3f}; padd_chain x16 "
+          f"{ladder['padd_chain_s'] * 1e3:.3f}")
+    print(f"  the probes took {time.perf_counter() - started:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -400,14 +541,21 @@ def main() -> int:
     dev = torch.device("cuda")
     curve, p256 = get_curve("secp256k1"), get_curve("p256")
     curves = (curve, p256)
+    mxu = F.make_field_spec("k256mxu.fp", curve.p, "mont")
+    probe_fields = (curve.field, p256.field, mxu)
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    targets = [(curve, name) for name in K.KERNELS] + [(p256, name) for name in P256_KERNELS]
+    probe_targets = ([(None, "dma_gather")] + [(f, "fmul_chain") for f in probe_fields]
+                     + [(f, "mxu_chain") for f in probe_fields if f.kind == "mont"]
+                     + [(curve, "ladder_probe")])
+    targets = ([(curve, name) for name in K256_KERNELS] + [(p256, name) for name in P256_KERNELS]
+               + probe_targets)
     reports = K.build_targets(targets)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(targets)} kernels: "
-          f"{sorted(K.KERNELS)} for secp256k1, {list(P256_KERNELS)} for p256")
+          f"{list(K256_KERNELS)} for secp256k1, {list(P256_KERNELS)} for p256, "
+          f"{[row_name(n, t) for t, n in probe_targets]} for the probes")
     for (cname, name), rep in reports.items():
         regs = [ln.split(":", 1)[1].strip() for ln in rep.splitlines()
                 if "registers" in ln and "Used" in ln]
@@ -420,12 +568,13 @@ def main() -> int:
     # -- 2. each kernel against its plain twin, at the main path's shapes ---
     rows = {}
 
-    def hold(name, label, kern, plain, reps, B=None, c=None, **work):
+    def hold(name, label, kern, plain, reps, B=None, c=curve, library=None, **work):
         """kern() against plain() (a tensor or a tuple of them), then kern's
         ms over `reps` runs and its bound from K.work (B: the lanes, by
-        default the output's last axis) for curve c (default secp256k1,
-        whose rows are named by the kernel alone)."""
-        c = c or curve
+        default the output's last axis) for target c (default secp256k1,
+        whose rows are named by the kernel alone; a field spec; None), and
+        the ms of library(), one PyTorch call that computes the same
+        function, where there is one."""
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -440,17 +589,24 @@ def main() -> int:
             raise AssertionError(f"{name} ({label}) differs from its plain twin: "
                                  f"max abs limb difference {err}")
         ms = _time_ms(kern, reps)
+        lib_ms = None if library is None else _time_ms(library, reps)
         ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B, **work)
         bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz)
         bound_ms = 1e3 * max(bytes_s, ops_s)
         by = "bytes" if bytes_s > ops_s else "operations"
         key = row_name(name, c)
+        extra = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
+        if "int8" in ops:
+            cores = op_seconds({**ops, "int8": 0}, clock_hz)
+            extra += (f" (CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
+                      f"{1e3 * ops['int8'] / INT8_OPS_PER_S:.4f} ms)")
         print(f"  {key} [{label}]: limb-equal to its twin; kernel {ms:.3f} ms, "
-              f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by})")
+              f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by}){extra}")
         row = rows.setdefault(key, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if "ms" not in row:        # the first variant is the main path's shape
-            row.update(ms=ms, plain_ms=1e3 * plain_s, bound_ms=bound_ms, bound_by=by)
+            row.update(ms=ms, plain_ms=1e3 * plain_s, bound_ms=bound_ms, bound_by=by,
+                       library_ms=lib_ms)
 
     print("hold: kernels against their plain twins")
     a_l, a_pts = _points(curve, 1, 8192, dev)
@@ -649,6 +805,9 @@ def main() -> int:
     phases = msm_phase_ms(core)        # last: a profiler run leaves overhead behind
     print(f"  device core by step (one profiled run), ms: {json.dumps(phases)}")
 
+    # -- 9. the probes (before the record of step 8) ---------------------------
+    probe_launches = probes(hold, probe_fields, dev)
+
     # -- 8. the record --------------------------------------------------------
     launches = {(curve, "padd_chain"): chain_launches,
                 (curve, "pow"): k256["verify_launches"]["pow"],
@@ -661,13 +820,13 @@ def main() -> int:
                 (p256, "padd_chain"): p_chain_launches,
                 (p256, "pow"): p["verify_launches"]["pow"],
                 (p256, "ladder"): p["verify_launches"]["ladder"],
-                (p256, "genmul"): p["sign_launches"]["genmul"]}
+                (p256, "genmul"): p["sign_launches"]["genmul"], **probe_launches}
     kernels = []
     for (c, name), count in launches.items():
         src, _, _, _, replaces = K.KERNELS[name]
         kernels.append({"name": row_name(name, c), "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
-                        "launches": count, **rows[row_name(name, c)], "library_ms": None})
+                        "launches": count, **rows[row_name(name, c)]})
     for c, r in ((curve, k256), (p256, p)):
         print(f"slice, {c.name}: {r['verify']:.1f} verifies/s (median of {VERIFY_RUNS}), "
               f"{r['sign']:.1f} signs/s, {r['derive']:.1f} derives/s, {r['recover']:.1f} "

@@ -1,6 +1,7 @@
-"""tpu_ecc_torch and the chip scripts import neither jax nor tpu_ecc (AST
-scan), and nothing in tpu_ecc_torch names a path into tpu_ecc/, so no source
-is built from there."""
+"""tpu_ecc_torch and the chip scripts import neither jax, tpu_ecc nor the
+repo's tools/ (AST scan), and nothing in tpu_ecc_torch names a path into
+tpu_ecc/ or tools/, so no source is built or loaded from there. The port's
+own tools live in tpu_ecc_torch/tools/."""
 
 import ast
 import pathlib
@@ -11,11 +12,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpu_ecc_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
-FORBIDDEN = ("jax", "jaxlib", "tpu_ecc")
+FORBIDDEN = ("jax", "jaxlib", "tpu_ecc", "tools")
 # a "file:line" reference to the TPU kernel a CUDA kernel replaces is text,
 # not a path the code opens
-_REFERENCE = re.compile(r"tpu_ecc/[\w/]+\.py:\d+")
-_INTO_REFERENCE = re.compile(r"(^|[/\\])tpu_ecc([/\\]|$)")
+_REFERENCE = re.compile(r"(tpu_ecc|tools)/[\w/]+\.py:\d+")
+# a path into tpu_ecc/ or into the repo's tools/ (the port's own
+# tpu_ecc_torch/tools/ is not one)
+_INTO_REFERENCE = re.compile(r"(^|[/\\])tpu_ecc([/\\]|$)|(^|(?<!tpu_ecc_torch)[/\\])tools([/\\]|$)")
 
 
 def _imported(tree: ast.AST):
@@ -25,8 +28,9 @@ def _imported(tree: ast.AST):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
-        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
-              and node.args and isinstance(node.args[0], ast.Constant)):
+        elif (isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant)
+              and (getattr(node.func, "id", None) == "__import__"
+                   or getattr(node.func, "attr", None) == "import_module")):
             yield str(node.args[0].value)
 
 
@@ -57,7 +61,26 @@ def test_no_path_into_reference(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [v for v in _strings(tree)
            if _INTO_REFERENCE.search(v) and not _REFERENCE.fullmatch(v)]
-    assert not bad, f"{path.name} names paths into tpu_ecc/: {bad}"
+    assert not bad, f"{path.name} names paths into tpu_ecc/ or tools/: {bad}"
+
+
+@pytest.mark.parametrize("src, bad", [
+    ("import tools.bench_mxu_mul", True), ("from tools import profile_ladder", True),
+    ("importlib.import_module('tools.bench_gather_probe')", True),
+    ("from tpu_ecc_torch.tools import profile_ladder", False),
+    ("from . import bench_mxu_mul", False)])
+def test_import_scan_catches_the_repos_tools(src, bad):
+    names = [m for m in _imported(ast.parse(src)) if m.split(".")[0] in FORBIDDEN]
+    assert bool(names) == bad
+
+
+@pytest.mark.parametrize("text, bad", [
+    ("tools/bench_mxu_mul.py", True), ("../tools/x.py", True), ("tools", True),
+    ("/repo/tools/profile_ladder.py", True), ("tpu_ecc/ops/fe.py", True),
+    ("tools/bench_mxu_mul.py:232", False), ("tpu_ecc/ops/pallas_kernels.py:887", False),
+    ("tpu_ecc_torch/tools/profile_ladder.py", False), ("tpu_ecc_torch.tools", False)])
+def test_path_scan_catches_the_repos_tools(text, bad):
+    assert bool(_INTO_REFERENCE.search(text) and not _REFERENCE.fullmatch(text)) == bad
 
 
 def test_native_sources_are_the_ports_own():
@@ -81,4 +104,6 @@ def test_scan_sees_the_package():
     assert {"tpu_ecc_torch/ops/fe.py", "tpu_ecc_torch/ops/kfe.py",
             "tpu_ecc_torch/ops/kernels.py", "tpu_ecc_torch/protocols/ecdsa.py",
             "tpu_ecc_torch/protocols/rfc6979.py", "tpu_ecc_torch/native/__init__.py",
-            "tpu_ecc_torch/parallel/msm.py", "chip_smoke.py"} <= names
+            "tpu_ecc_torch/parallel/msm.py", "tpu_ecc_torch/tools/bench_gather_probe.py",
+            "tpu_ecc_torch/tools/bench_mxu_mul.py", "tpu_ecc_torch/tools/profile_ladder.py",
+            "chip_smoke.py"} <= names

@@ -229,3 +229,69 @@ def test_msm_on_the_card_equals_host(dev, k256, n_points):
     assert M.msm(k256, pts, k) == want
     used = ("segscan", "fixup", "bucket_reduce", "horner") if n_points >= 1 << 14 else ("ladder",)
     assert all(kernels.launches[name] > 0 for name in used)
+
+
+# the probe kernels (tpu_ecc_torch/tools/)
+
+@pytest.mark.parametrize("depth", [2, 8, 16])
+@pytest.mark.parametrize("W", [32, 128])
+def test_dma_gather_matches_plain(dev, W, depth):
+    """The XOR of the gathered rows equals the twin's and numpy's."""
+    from tpu_ecc_torch.tools import bench_gather_probe as G
+
+    N, M, Cb = 4096, 1024, 256
+    pay = G.device_payload(N, W, dev)
+    idx_np = np.random.default_rng(depth).integers(0, N, M).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
+    out = kernels.dma_gather(pay, idx, Cb, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.dma_gather_plain(pay, idx))
+    want = np.bitwise_xor.reduce(pay.cpu().numpy()[idx_np], axis=0, keepdims=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+FIELDS = ["secp256k1.fp", "p256.fp", "k256mxu.fp"]
+
+
+def _field(name):
+    if name == "k256mxu.fp":
+        return F.make_field_spec(name, get_curve("secp256k1").p, "mont")
+    return get_curve(name.split(".")[0]).field
+
+
+def _field_inputs(spec, dev, seed):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(B)]
+    return (F.fe_from_ints(spec, vals, dev).limbs,
+            F.fe_from_ints(spec, vals[::-1], dev).limbs)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_fmul_chain_matches_plain(dev, name):
+    spec = _field(name)
+    a, b = _field_inputs(spec, dev, 7)
+    out = kernels.fmul_chain(spec, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.fmul_chain_plain(spec, a, b))
+
+
+@pytest.mark.parametrize("name", [f for f in FIELDS if f != "secp256k1.fp"])
+def test_mxu_chain_matches_plain(dev, name):
+    """B = 300: the last warp is ragged and still runs every mma."""
+    spec = _field(name)
+    a, b = _field_inputs(spec, dev, 8)
+    out = kernels.mxu_chain(spec, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.mxu_chain_plain(spec, a, b))
+
+
+@pytest.mark.parametrize("variant", kernels.PROBE_VARIANTS)
+def test_ladder_probe_matches_plain(dev, k256, variant):
+    nw = 3
+    bases = _points(k256, 13, B, dev)
+    rng = np.random.default_rng(9)
+    mag = torch.from_numpy(rng.integers(0, 9, (nw, 2, B))).to(dev)
+    neg = torch.from_numpy(rng.integers(0, 2, (nw, 2, B)).astype(bool)).to(dev)
+    out = kernels.ladder_probe(k256, bases, mag, neg, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.ladder_probe_plain(k256, bases, mag, neg, variant))

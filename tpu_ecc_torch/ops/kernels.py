@@ -14,15 +14,27 @@ the plain PyTorch twin beside each.
 | `padd`       | csrc/padd.cu       | `_padd_call` :379                        |
 | `pdouble`    | csrc/pdouble.cu    | `_pdouble_call` :403                     |
 
-Each kernel runs one thread per batch lane over limb-major [.., n, B] uint32
-arrays, and calls straight-line field and point functions that ops/kfe.py
-generates from the KFE bound ledger into a header per (curve, kernel):
-the a = 0 formulas for secp256k1, the a = -3 ones for P-256 and the other
-a = -3 curves, and the GLV multiply by beta only for a curve that has an
-endomorphism (`functions`). The
+and the four kernels of the probe tools (tpu_ecc_torch/tools/), which replace
+the Pallas kernels of the JAX repo's tools/:
+
+| kernel         | source              | replaces                              |
+|----------------|---------------------|---------------------------------------|
+| `dma_gather`   | csrc/dma_gather.cu  | `dma_gather_call`, bench_gather_probe.py:82 |
+| `fmul_chain`   | csrc/fmul_chain.cu  | the KFE 16-mul chain, bench_mxu_mul.py:118 |
+| `mxu_chain`    | csrc/mxu_chain.cu   | `bench_mxu_kernel_chain`, bench_mxu_mul.py:232 |
+| `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
+
+Each kernel but `dma_gather` runs one thread per batch lane over limb-major
+[.., n, B] uint32 arrays, and calls straight-line field and point functions
+that ops/kfe.py generates from the KFE bound ledger into a header per
+(target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the
+a = -3 ones for P-256 and the other a = -3 curves, and the GLV multiply by
+beta only for a curve that has an endomorphism, `functions`), a bare field
+spec (`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
+None (`dma_gather`, which has no generated header). The
 build is nvcc by hand into a shared library with a plain C interface, bound
-with ctypes, at first use (or by `build`) into build/kernels/ beside the
-package; a content hash of the source, the header and the flags names the
+with ctypes, at first use (or by `build_targets`) into build/kernels/ beside
+the package; a content hash of the source, the header and the flags names the
 library, so a changed source rebuilds.
 
 Each wrapper takes its plain twin for a CPU tensor and launches its kernel
@@ -50,9 +62,11 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 from ..curves.specs import CurveSpec, get_curve
+from ..utils.bigint import int_to_limbs
 from . import fe as F
 from . import kfe
 from . import points as P
@@ -95,14 +109,27 @@ KERNELS = {
                       "tpu_ecc/ops/pallas_kernels.py:733"),
     "horner": ("horner.cu", ("padd", "pdouble"), "horner_launch",
                [_VP, _VP, _I, _I], "tpu_ecc/ops/pallas_kernels.py:814"),
+    "dma_gather": ("dma_gather.cu", (), "dma_gather_launch",
+                   [_VP, _VP, _VP, _I, _I, _I, _I, _I],
+                   "tools/bench_gather_probe.py:82"),
+    "fmul_chain": ("fmul_chain.cu", ("fp_mul",), "fmul_chain_launch",
+                   [_VP, _VP, _VP, _I], "tools/bench_mxu_mul.py:118"),
+    "mxu_chain": ("mxu_chain.cu", (), "mxu_chain_launch",
+                  [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I],
+                  "tools/bench_mxu_mul.py:232"),
+    "ladder_probe": ("ladder_probe.cu", ("padd", "pdouble", "fp_neg"),
+                     "ladder_probe_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I],
+                     "tools/profile_ladder.py:72"),
 }
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
+CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
+PROBE_VARIANTS = ("bare", "unroll", "build", "select", "negate")
 
 launches = {name: 0 for name in KERNELS}
 """Launches of each kernel since the last `reset_launches()`."""
 
-_bound: dict = {}   # (kernel, curve name) -> ctypes function
+_bound: dict = {}   # (kernel, target name) -> ctypes function
 
 
 def reset_launches() -> None:
@@ -125,21 +152,27 @@ def _nvcc() -> str:
     return found
 
 
-def functions(name: str, curve: CurveSpec) -> tuple:
-    """The generated functions kernel `name` takes for `curve`: the ladder
-    takes beta * x (psi) only where the curve has an endomorphism."""
-    glv = ("fp_mul_beta",) if name == "ladder" and curve.glv else ()
+def functions(name: str, target) -> tuple:
+    """The generated functions kernel `name` takes for `target` (a curve, a
+    field spec or None): the ladder takes beta * x (psi) only where the
+    curve has an endomorphism."""
+    glv = ("fp_mul_beta",) if name == "ladder" and target.glv else ()
     return KERNELS[name][1] + glv
 
 
-def _target(name: str, curve: CurveSpec):
+def target_name(target) -> str:
+    """A build target's name: the curve's or the field's, "any" for None."""
+    return "any" if target is None else target.name
+
+
+def _target(name: str, target):
     """(library path, build directory, generated header) for one kernel."""
     src_file = KERNELS[name][0]
-    header, _ = kfe.kernel_header(curve, functions(name, curve))
+    header = "" if target is None else kfe.kernel_header(target, functions(name, target))[0]
     with open(os.path.join(CSRC, src_file)) as fh:
         src = fh.read()
     key = hashlib.sha256("\0".join((header, src) + NVCC_FLAGS).encode())
-    d = os.path.join(BUILD_DIR, f"{curve.name}-{name}-{key.hexdigest()[:16]}")
+    d = os.path.join(BUILD_DIR, f"{target_name(target)}-{name}-{key.hexdigest()[:16]}")
     return os.path.join(d, f"lib{name}.so"), d, header
 
 
@@ -152,15 +185,16 @@ def build(curve: CurveSpec, names=None) -> dict:
 
 
 def build_targets(targets) -> dict:
-    """Build the kernels of targets = [(curve, name), ...], one nvcc process
-    per (curve, kernel), all started together, and bind them. Returns
-    {(curve name, kernel name): nvcc's report} for the kernels built now
+    """Build the kernels of targets = [(target, name), ...] (a target is a
+    curve, a field spec or None, see `functions`), one nvcc process per
+    (target, kernel), all started together, and bind them. Returns
+    {(target name, kernel name): nvcc's report} for the kernels built now
     (ptxas registers, spills); a library already built from the same
     source, header and flags is reused."""
     jobs = {}
-    for curve, name in targets:
-        so, d, header = _target(name, curve)
-        if os.path.exists(so) or (curve.name, name) in jobs:
+    for target, name in targets:
+        so, d, header = _target(name, target)
+        if os.path.exists(so) or (target_name(target), name) in jobs:
             continue
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
@@ -170,7 +204,7 @@ def build_targets(targets) -> dict:
                os.path.join(CSRC, KERNELS[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[curve.name, name] = (so, tmp, proc)
+        jobs[target_name(target), name] = (so, tmp, proc)
     reports, failed = {}, []
     for key, (so, tmp, proc) in jobs.items():
         reports[key], _ = proc.communicate()
@@ -182,17 +216,17 @@ def build_targets(targets) -> dict:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    for curve, name in targets:
-        _bind(name, curve)
+    for target, name in targets:
+        _bind(name, target)
     return reports
 
 
-def _bind(name: str, curve: CurveSpec):
-    key = (name, curve.name)
+def _bind(name: str, target):
+    key = (name, target_name(target))
     if key not in _bound:
-        so, _, _ = _target(name, curve)
+        so, _, _ = _target(name, target)
         if not os.path.exists(so):
-            build(curve, [name])
+            build_targets([(target, name)])
         fn = getattr(ctypes.CDLL(so), KERNELS[name][2])
         fn.argtypes = [*KERNELS[name][3], ctypes.POINTER(_I), _VP]
         fn.restype = ctypes.c_int
@@ -200,10 +234,10 @@ def _bind(name: str, curve: CurveSpec):
     return _bound[key]
 
 
-def _launch(name: str, curve: CurveSpec, device: torch.device, *args) -> None:
+def _launch(name: str, target, device: torch.device, *args) -> None:
     """Call a kernel's C entry on the current stream and add the kernel
     launches it reports making to `launches[name]`."""
-    fn = _bind(name, curve)
+    fn = _bind(name, target)
     stream = torch.cuda.current_stream(device).cuda_stream
     made = _I(0)
     err = fn(*args, ctypes.byref(made), stream)
@@ -632,15 +666,217 @@ def horner_plain(curve: CurveSpec, s_all: torch.Tensor, w: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the probes: dma_gather, fmul_chain, mxu_chain, ladder_probe
+# ---------------------------------------------------------------------------
+
+def dma_gather(payload: torch.Tensor, idx: torch.Tensor, Cb: int,
+               depth: int) -> torch.Tensor:
+    """The XOR of the rows payload[idx] -> [1, W]: payload int32 [N, W]
+    (uint32 bits), idx int32 [M], M a multiple of Cb, Cb of depth. The
+    kernel takes a chunk of Cb indices per block and keeps `depth` row
+    copies in flight; the result does not depend on Cb or depth. An index
+    outside [0, N) stops the kernel with a device fault, as index_select's
+    device assertion does."""
+    M = idx.shape[0]
+    N, W = payload.shape
+    if Cb <= 0 or depth <= 0 or M % Cb or Cb % depth:
+        raise ValueError(f"dma_gather: need Cb | M and depth | Cb, got M={M} "
+                         f"Cb={Cb} depth={depth}")
+    if (W * 4) % 16 or W > 1024:
+        raise ValueError(f"dma_gather: a row must be a multiple of 16 bytes and at "
+                         f"most 1024 words, got W={W}")
+    if payload.device.type == "cpu":
+        return dma_gather_plain(payload, idx)
+    _check(payload, (N, W), "dma_gather payload")
+    _check(idx, (M,), "dma_gather idx")
+    if payload.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise ValueError("dma_gather: payload and idx must be int32")
+    pay, ix = payload.contiguous(), idx.contiguous()
+    out = torch.zeros((1, W), dtype=torch.int32, device=payload.device)
+    _launch("dma_gather", None, payload.device, pay.data_ptr(), ix.data_ptr(),
+            out.data_ptr(), N, W, M, Cb, depth)
+    return out
+
+
+def dma_gather_plain(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    rows = torch.index_select(payload, 0, idx)
+    while rows.shape[0] > 1:            # XOR fold, a pairwise tree
+        if rows.shape[0] % 2:
+            rows = torch.cat([rows, torch.zeros_like(rows[:1])], 0)
+        h = rows.shape[0] // 2
+        rows = rows[:h] ^ rows[h:]
+    return rows if rows.shape[0] else torch.zeros_like(payload[:1])
+
+
+def fmul_chain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a <- a * b, CHAIN times, each product clamped steady (the generated
+    `kfe_fp_mul`): steady limbs a, b [n, B] -> steady [n, B]. On a
+    Montgomery field each product carries R^-1."""
+    if a.device.type == "cpu":
+        return fmul_chain_plain(spec, a, b)
+    n, B = spec.n_limbs, a.shape[-1]
+    _check(a, (n, B), "fmul_chain a")
+    _check(b, (n, B), "fmul_chain b")
+    a32, b32 = _u32(a), _u32(b)
+    out = torch.empty((n, B), dtype=torch.int32, device=a.device)
+    _launch("fmul_chain", spec, a.device, a32.data_ptr(), b32.data_ptr(),
+            out.data_ptr(), B)
+    return _from_u32(out)
+
+
+def fmul_chain_plain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    acc, y = F.fe_steady(spec, a.to(F.LIMB)), F.fe_steady(spec, b.to(F.LIMB))
+    for _ in range(CHAIN):
+        acc = F._steady(F.fmul(acc, y))
+    return acc.limbs
+
+
+def _toeplitz(limbs, rows: int, cols: int) -> np.ndarray:
+    """C[k, i] = limbs[k - i] (0 outside): the banded convolution matrix."""
+    m = np.zeros((rows, cols), np.int64)
+    for i in range(cols):
+        for j, v in enumerate(limbs):
+            if i + j < rows:
+                m[i + j, i] = v
+    return m
+
+
+def _planes_np(mat: np.ndarray) -> tuple:
+    """13-bit digits -> their int8 planes (low 7 bits, high 6 bits)."""
+    return (mat & 127).astype(np.int8), (mat >> 7).astype(np.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def mont_matrices(spec: F.FieldSpec) -> tuple:
+    """The two constant Toeplitz matrices of the separated Montgomery step:
+    Mc [n, n] (m = T * N' mod R, the columns >= n dropped) and Pc [2n, n]
+    (m * p), N' = -p^-1 mod R, R = 2^(b n)."""
+    b, n = spec.limb_bits, spec.n_limbs
+    R = 1 << (b * n)
+    nprime = (R - pow(spec.p, -1, R)) % R
+    return (_toeplitz(int_to_limbs(nprime, n, b), n, n),
+            _toeplitz(int_to_limbs(spec.p, n, b), 2 * n, n))
+
+
+def _carry_rows(cols: torch.Tensor, b: int, mask: int) -> torch.Tensor:
+    """The sequential carry down the rows of cols; the carry-out drops."""
+    return torch.stack(kfe._carry_unrolled(list(cols), b, mask)[0], 0)
+
+
+def mont_step(spec: F.FieldSpec, x: torch.Tensor, y: torch.Tensor, const_conv) -> torch.Tensor:
+    """One separated Montgomery multiply on canonical digits x, y [n, B]
+    (tools/bench_mxu_mul.py:286-298, the kernel chain's :470-484): the data
+    by data convolution and its carry, m = T * N' mod R and (T + m p) / R by
+    const_conv(which, digits) (which: 0 for N', 1 for p) -> digits [n, B]
+    below 2p."""
+    b, n, mask = spec.limb_bits, spec.n_limbs, spec.mask
+    cols = torch.zeros((2 * n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    for i in range(n):
+        cols[i:i + n] += x[i] * y
+    T = _carry_rows(cols, b, mask)
+    m = _carry_rows(const_conv(0, T[:n]), b, mask)
+    u = _carry_rows(const_conv(1, m) + T, b, mask)
+    return u[n:]
+
+
+def mxu_chain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a <- mont_step(a, b), CHAIN times, on a Montgomery field: canonical
+    digits a, b [n, B] -> digits [n, B] below 2p. The two constant products
+    of each step run on the int8 tensor cores in 7 + 6-bit planes."""
+    if spec.kind != "mont":
+        raise ValueError(f"mxu_chain: {spec} is not a Montgomery field")
+    if a.device.type == "cpu":
+        return mxu_chain_plain(spec, a, b)
+    n, B = spec.n_limbs, a.shape[-1]
+    _check(a, (n, B), "mxu_chain a")
+    _check(b, (n, B), "mxu_chain b")
+    a32, b32 = _u32(a), _u32(b)
+    planes = _mont_planes(spec, a.device)
+    out = torch.empty((n, B), dtype=torch.int32, device=a.device)
+    _launch("mxu_chain", spec, a.device, a32.data_ptr(), b32.data_ptr(),
+            *(t.data_ptr() for t in planes), out.data_ptr(), B)
+    return _from_u32(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _mont_planes(spec: F.FieldSpec, device: torch.device) -> tuple:
+    """(Mlo, Mhi [n, n], Plo, Phi [2n, n]) int8 on `device`."""
+    Mc, Pc = mont_matrices(spec)
+    return tuple(torch.from_numpy(p).to(device) for p in (*_planes_np(Mc), *_planes_np(Pc)))
+
+
+def mxu_chain_plain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mats = [torch.from_numpy(m).to(a.device) for m in mont_matrices(spec)]
+
+    def const_conv(which, d):
+        return (mats[which][:, :, None] * d[None]).sum(1)
+
+    x, y = a.to(F.LIMB), b.to(F.LIMB)
+    for _ in range(CHAIN):
+        x = mont_step(spec, x, y, const_conv)
+    return x
+
+
+def ladder_probe(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
+                 neg: torch.Tensor, variant: str) -> torch.Tensor:
+    """The ladder's body with its parts switched on one at a time
+    (PROBE_VARIANTS): bases [3, n, B] steady limbs of one base, mag and neg
+    [nw, 2, B] -> steady [3, n, B]. From O, per window 4 doublings, then for
+    h = 0, 1 an add of the selected entry of the table [O, Q, .., 8Q]:
+    entry 1 (`bare`, `unroll`, `build`) or entry mag[w, h] (`select`,
+    `negate`); `negate` negates y where neg[w, h] is set; from `build` on
+    the kernel builds the table's entries 2-8 (7 adds), though only
+    `select` and `negate` read them (the twin builds them only there)."""
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"ladder_probe: variant must be one of {PROBE_VARIANTS}")
+    if bases.device.type == "cpu":
+        return ladder_probe_plain(curve, bases, mag, neg, variant)
+    n, B = curve.field.n_limbs, bases.shape[-1]
+    nw = mag.shape[0]
+    _check(bases, (3, n, B), "ladder_probe bases")
+    _check(mag, (nw, 2, B), "ladder_probe mag")
+    _check(neg, (nw, 2, B), "ladder_probe neg")
+    b32, m32, g32 = _u32(bases), _u32(mag), _u32(neg)
+    out = torch.empty((3, n, B), dtype=torch.int32, device=bases.device)
+    tbl = torch.empty((TBL, 3, n, B), dtype=torch.int32, device=bases.device)
+    _launch("ladder_probe", curve, bases.device, b32.data_ptr(), m32.data_ptr(),
+            g32.data_ptr(), out.data_ptr(), tbl.data_ptr(), nw,
+            PROBE_VARIANTS.index(variant), B)
+    return _from_u32(out)
+
+
+def ladder_probe_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
+                       neg: torch.Tensor, variant: str) -> torch.Tensor:
+    from .scalarmul import _ct_lookup, _point_table, _signed_term  # scalarmul imports this module
+    base = P.point_from_limbs(curve, bases.to(F.LIMB))
+    tbl = _point_table(base, TBL) if variant in ("select", "negate") else None
+    acc = P.point_from_limbs(curve, _identity_of(curve, bases.shape[-1:], bases.device))
+    for w in range(mag.shape[0]):
+        for _ in range(4):
+            acc = P.steady(P.pdouble(acc))
+        for h in range(2):
+            if variant == "negate":
+                sel = P.point_from_limbs(curve, _signed_term(curve, tbl, mag[w, h],
+                                                             neg[w, h] != 0))
+            elif variant == "select":
+                sel = P.point_from_limbs(curve, _ct_lookup(tbl, mag[w, h]))
+            else:
+                sel = base
+            acc = P.steady(P.padd(acc, sel))
+    return P.point_limbs(acc)
+
+
+# ---------------------------------------------------------------------------
 # work per call, for the kernels' bounds
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def op_counts(curve: CurveSpec) -> dict:
-    """The 32-bit integer instructions each generated function needs at
-    least, by class, as the generator counts them (kfe.INSTRUCTION_CLASSES)."""
-    names = tuple(kfe.function_table(curve))
-    return kfe.kernel_header(curve, names)[1]
+def op_counts(target) -> dict:
+    """The 32-bit integer instructions each generated function of `target`
+    (a curve or a field spec) needs at least, by class, as the generator
+    counts them (kfe.INSTRUCTION_CLASSES)."""
+    names = tuple(kfe.function_table(target))
+    return kfe.kernel_header(target, names)[1]
 
 
 _NONE = dict.fromkeys(kfe.INSTRUCTION_CLASSES, 0)
@@ -651,17 +887,53 @@ def _total(*terms) -> dict:
     return {c: sum(k * cnt[c] for k, cnt in terms) for c in kfe.INSTRUCTION_CLASSES}
 
 
-def work(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
+def work(name: str, target, B: int, **kw) -> tuple:
     """(32-bit integer instructions by class, bytes that must move) of one
     call: padd(), pdouble(), padd_chain(repeat=), pow(field=0|1, e=),
     ladder(T=, nw=, glv=), genmul(nw=), segscan(C=, adds=, signed=),
-    fixup(adds=), bucket_reduce(groups=), horner(nw=, w=). B is the lanes of all windows
-    (segscan, fixup), the buckets of one window (bucket_reduce) or 1
-    (horner); `adds` counts the adds that the call's data needs (rows whose
-    key repeats; lanes whose partner is in their run, over all steps)."""
-    c = op_counts(curve)
+    fixup(adds=), bucket_reduce(groups=), horner(nw=, w=) on a curve;
+    fmul_chain(), mxu_chain() on a field spec; dma_gather(M=) with target
+    None; ladder_probe(nw=, variant=). B is the lanes of all windows
+    (segscan, fixup), the buckets of one window (bucket_reduce), 1
+    (horner) or the row width W (dma_gather); `adds` counts the adds that
+    the call's data needs (rows whose key repeats; lanes whose partner is
+    in their run, over all steps). `mxu_chain` adds the int8 tensor-core
+    operations (two per multiply-add) under "int8"."""
+    if name == "dma_gather":        # one XOR per word gathered
+        M = kw["M"]
+        return {"imad": 0, "alu": M * B, "other": 0}, (M * B + M + B) * 4
+    c = op_counts(target)
+    if isinstance(target, F.FieldSpec):
+        n = target.n_limbs
+        if name == "fmul_chain":
+            return _total((CHAIN * B, c["fp_mul"])), 3 * n * 4 * B
+        if name == "mxu_chain":
+            # per step and lane: the n*n convolution; one AND and one add
+            # with the shifted carry per digit of the three carries (2n, n,
+            # 2n digits); one AND and one shift per digit split into planes
+            # (2n); two shift-adds per recombined column (3n); the + T (2n).
+            # The four plane products are 4 * (n*n + 2n*n) multiply-adds.
+            step = {"imad": n * n, "alu": 5 * n + 2 * n,
+                    "other": 5 * n + 2 * n + 2 * 3 * n + 2 * n}
+            ops = _total((CHAIN * B, step))
+            ops["int8"] = CHAIN * B * 2 * 4 * 3 * n * n
+            return ops, 3 * n * 4 * B + 3 * n * n * 2
+        raise KeyError(name)
+    curve = target
     n = curve.field.n_limbs
     pn = 3 * n
+    if name == "ladder_probe":
+        nw, variant = kw["nw"], kw["variant"]
+        built = variant not in ("bare", "unroll")
+        selects = variant in ("select", "negate")
+        select = {"imad": 0, "alu": TBL * (pn + 1), "other": 0}
+        negate = {"imad": 0, "alu": n, "other": 0}
+        ops = _total(((7 if built else 0) * B, c["padd"]), (4 * nw * B, c["pdouble"]),
+                     (2 * nw * B, c["padd"]), (2 * nw * B if selects else 0, select),
+                     (2 * nw * B if variant == "negate" else 0, negate),
+                     (2 * nw * B if variant == "negate" else 0, c["fp_neg"]))
+        words = 2 * pn + (2 * nw if selects else 0) + (2 * nw if variant == "negate" else 0)
+        return ops, words * 4 * B
     if name == "padd":
         return _total((B, c["padd"])), 3 * pn * 4 * B
     if name == "pdouble":

@@ -896,42 +896,59 @@ def _const_function(cname: str, limbs) -> str:
             f"{{\n{body}}}\n")
 
 
-def function_table(curve) -> dict:
-    """Every generated function for `curve`: name -> (params, body)."""
-    f, s = curve.field, curve.scalar
-    nf, ns = f.n_limbs, s.n_limbs
-    table = {
-        "padd": ([("a", 3 * nf), ("b", 3 * nf)], lambda a, b: padd(curve, a, b)),
-        "padd_mixed": ([("a", 3 * nf), ("x", nf), ("y", nf)],
-                       lambda a, x, y: padd_mixed(curve, a, x, y)),
-        "pdouble": ([("a", 3 * nf)], lambda a: pdouble(curve, a)),
-        "fp_mul": ([("x", nf), ("y", nf)], lambda x, y: fe_mul(f, x, y)),
-        "fp_sqr": ([("x", nf)], lambda x: fe_sqr(f, x)),
-        "fp_neg": ([("x", nf)], lambda x: fe_neg(f, x)),
-        "fn_mul": ([("x", ns), ("y", ns)], lambda x, y: fe_mul(s, x, y)),
-        "fn_sqr": ([("x", ns)], lambda x: fe_sqr(s, x)),
-        "fn_neg": ([("x", ns)], lambda x: fe_neg(s, x)),
-    }
-    if curve.glv:
+def _field_functions(spec, pre: str) -> dict:
+    """The multiply, square and negation of one field, named `<pre>_mul` etc."""
+    n = spec.n_limbs
+    return {f"{pre}_mul": ([("x", n), ("y", n)], lambda x, y: fe_mul(spec, x, y)),
+            f"{pre}_sqr": ([("x", n)], lambda x: fe_sqr(spec, x)),
+            f"{pre}_neg": ([("x", n)], lambda x: fe_neg(spec, x))}
+
+
+def _fields(target) -> tuple:
+    """(prefix, field spec) of each field of a curve, or of a bare field spec."""
+    if isinstance(target, FieldSpec):
+        return (("fp", target),)
+    return (("fp", target.field), ("fn", target.scalar))
+
+
+def function_table(target) -> dict:
+    """Every generated function for `target`: name -> (params, body). A
+    curve has the point formulas and both fields' functions; a bare field
+    spec (no curve, such as the forced-Montgomery secp256k1 field of the
+    multiply probes) only its own fp_mul, fp_sqr and fp_neg."""
+    table = {}
+    if not isinstance(target, FieldSpec):
+        curve, nf = target, target.field.n_limbs
+        table = {
+            "padd": ([("a", 3 * nf), ("b", 3 * nf)], lambda a, b: padd(curve, a, b)),
+            "padd_mixed": ([("a", 3 * nf), ("x", nf), ("y", nf)],
+                           lambda a, x, y: padd_mixed(curve, a, x, y)),
+            "pdouble": ([("a", 3 * nf)], lambda a: pdouble(curve, a)),
+        }
+    for pre, spec in _fields(target):
+        table.update(_field_functions(spec, pre))
+    if not isinstance(target, FieldSpec) and target.glv:
         table["fp_mul_beta"] = ([("x", nf)], lambda x: fe_mul_beta(curve, x))
     return table
 
 
-def kernel_header(curve, names) -> tuple[str, dict]:
-    """C++ header for `curve` with the generated functions `names`, each
-    named `kfe_<name>`, the limb counts KFE_FP_N / KFE_FN_N, KFE_HAS_BETA
-    where `fp_mul_beta` is among them, and each field's encoded one.
-    Returns (source, {name: instruction counts by class})."""
-    f, s = curve.field, curve.scalar
-    parts = [_PREAMBLE,
-             f"// curve: {curve.name}\n"
-             f"#define KFE_FP_N {f.n_limbs}\n#define KFE_FN_N {s.n_limbs}\n",
-             "#define KFE_HAS_BETA 1\n" if "fp_mul_beta" in names else "",
-             _const_function("kfe_fp_one",
-                             int_to_limbs(f.encode_int(1), f.n_limbs, f.limb_bits)),
-             _const_function("kfe_fn_one",
-                             int_to_limbs(s.encode_int(1), s.n_limbs, s.limb_bits))]
-    table = function_table(curve)
+def kernel_header(target, names) -> tuple[str, dict]:
+    """C++ header for `target` (a curve, or a bare field spec) with the
+    generated functions `names`, each named `kfe_<name>`, the limb counts
+    KFE_FP_N (and for a curve KFE_FN_N), the base field's limb width
+    KFE_FP_BITS, KFE_HAS_BETA where `fp_mul_beta` is among them, and each
+    field's encoded one. Returns (source, {name: instruction counts by
+    class})."""
+    fields = _fields(target)
+    kind = "field" if isinstance(target, FieldSpec) else "curve"
+    parts = [_PREAMBLE, f"// {kind}: {target.name}\n",
+             f"#define KFE_FP_BITS {fields[0][1].limb_bits}\n",
+             "#define KFE_HAS_BETA 1\n" if "fp_mul_beta" in names else ""]
+    for pre, spec in fields:
+        parts += [f"#define KFE_{pre.upper()}_N {spec.n_limbs}\n",
+                  _const_function(f"kfe_{pre}_one",
+                                  int_to_limbs(spec.encode_int(1), spec.n_limbs, spec.limb_bits))]
+    table = function_table(target)
     lib, counts, tops = {}, {}, []
     for name in names:
         params, body = table[name]
