@@ -10,9 +10,16 @@
    secp256k1 forced onto Montgomery, k256mxu.fp; mxu_chain for the two
    Montgomery fields; ladder_probe for secp256k1); then the native signing
    code (g++). Prints the seconds it took and ptxas's registers and stack
-   for each.
+   for each. The two kernels on the 32-bit field layer (padd_chain for
+   both curves, segscan) must show 0 bytes of spill stores and loads; for
+   each, the instructions of its loop body in the built SASS (cuobjdump
+   -sass), by class, print beside the count of kernels.work's "fe32"
+   design.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
-   shapes the main path gives it (tolerance: exact, zero limb difference):
+   shapes the main path gives it (tolerance: exact, zero limb difference;
+   for padd_chain and segscan, which run on the 32-bit layer and store
+   canonical values, zero difference between the canonical limbs of each
+   projective coordinate, segscan's `scanned` at its run-end rows only):
    padd_chain at B = 8192, repeat 16; pow on the scalar field (e = n - 2)
    and the base field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at
    B = 4096 and with glv=False, T = 1 (65 windows); genmul (the comb k*G)
@@ -77,6 +84,8 @@ device it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +102,11 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores (the same)
 # instruction (32 lanes) each per clock, 128 lanes in all.
 INT32_PER_CLK_PER_SM = 64
 ISSUE_PER_CLK_PER_SM = 128
+# IMAD.WIDE.U32 (the 32-bit layer's 32 x 32 -> 64 multiply-add) takes two
+# slots of that 64-per-clock multiply pipe and one issue slot: the guide
+# gives no rate for it, and tpu_ecc_torch/tools/bench_imad_wide.py measures
+# 29.5 a clock an SM on an H100 (IMAD: 64.0), at most the 32 of two slots.
+WIDE_SLOTS = 2
 SMS = 132
 VERIFY_RUNS = 7
 RUNS = 7          # sign, derive and recover
@@ -129,13 +143,16 @@ def smi(query: str) -> str:
 
 def op_seconds(ops: dict, clock_hz: float) -> float:
     """The least time the card takes for `ops` (instructions by class, see
-    kfe.INSTRUCTION_CLASSES, and int8 tensor-core operations under "int8"):
-    the multiplies on the FMA pipe and the logic on the ALU pipe each at 64
-    per clock per SM, all of them within the issue rate of 128 per clock per
-    SM, and the int8 operations at the dense int8 rate; the larger of the
-    two parts."""
-    per_sm = max(ops["imad"] / INT32_PER_CLK_PER_SM, ops["alu"] / INT32_PER_CLK_PER_SM,
-                 (ops["imad"] + ops["alu"] + ops["other"]) / ISSUE_PER_CLK_PER_SM)
+    kfe.INSTRUCTION_CLASSES and kfe.FE32_CLASSES, and int8 tensor-core
+    operations under "int8"): the multiplies on the FMA pipe (an
+    IMAD.WIDE.U32, "wide", as WIDE_SLOTS of them) and the logic on the ALU
+    pipe each at 64 per clock per SM, all of them within the issue rate of
+    128 per clock per SM, and the int8 operations at the dense int8 rate;
+    the larger of the two parts."""
+    wide = ops.get("wide", 0)
+    per_sm = max((ops["imad"] + WIDE_SLOTS * wide) / INT32_PER_CLK_PER_SM,
+                 ops["alu"] / INT32_PER_CLK_PER_SM,
+                 (ops["imad"] + wide + ops["alu"] + ops["other"]) / ISSUE_PER_CLK_PER_SM)
     return max(per_sm / (SMS * clock_hz), ops.get("int8", 0) / INT8_OPS_PER_S)
 
 
@@ -150,6 +167,134 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def canonical(curve, limbs: torch.Tensor) -> torch.Tensor:
+    """Steady point limbs [3, n, ...] -> each coordinate's canonical limbs
+    (int64), for holding the 32-bit layer's kernels mod p."""
+    from tpu_ecc_torch.ops import fe as F
+
+    f = curve.field
+    return torch.stack([F.fcanonical(F.fe_steady(f, limbs[c].to(torch.int64))).limbs
+                        for c in range(3)], 0)
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def limb_diff(outs_k, outs_p) -> int:
+    """The largest limb difference between two tuples of outputs."""
+    return max(_max_diff(a, b) for a, b in zip(outs_k, outs_p))
+
+
+def coord_diff(curve):
+    """padd_chain's hold: the largest difference between the canonical limbs
+    of each projective coordinate."""
+    return lambda outs_k, outs_p: _max_diff(canonical(curve, outs_k[0]),
+                                            canonical(curve, outs_p[0]))
+
+
+def run_ends(key2: torch.Tensor) -> torch.Tensor:
+    """The rows [C, *lanes] that end a run: key2[r + 1] != key2[r], or the
+    last row."""
+    ends = torch.ones_like(key2, dtype=torch.bool)
+    ends[:-1] = key2[1:] != key2[:-1]
+    return ends
+
+
+def segscan_diff(curve, key2):
+    """segscan's hold: `scanned` at the run-end rows and tail and lead by
+    canonical coordinates, last_key exactly."""
+    ends = run_ends(key2)
+
+    def at_ends(sc):                     # [C, 3, n, *lanes] -> [3, n, ends]
+        return canonical(curve, sc.movedim(0, 2)[:, :, ends])
+
+    def diff(outs_k, outs_p):
+        return max(_max_diff(at_ends(outs_k[0]), at_ends(outs_p[0])),
+                   _max_diff(outs_k[1], outs_p[1]),
+                   *(_max_diff(canonical(curve, a), canonical(curve, b))
+                     for a, b in zip(outs_k[2:], outs_p[2:])))
+    return diff
+
+
+def ptxas_report(log: str) -> tuple:
+    """(registers line, stack and spill line) of ptxas's -v report."""
+    regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+            if "registers" in ln and "Used" in ln]
+    stack = [ln.strip() for ln in log.splitlines() if "stack frame" in ln]
+    return (regs[0] if regs else "no ptxas report", stack[0] if stack else "")
+
+
+def sass_class(op: str) -> str:
+    """The class of one SASS opcode, as kfe.FE32_CLASSES sorts the 32-bit
+    layer's instructions, plus local, memory and control."""
+    if op.startswith("IMAD.WIDE"):
+        return "wide"
+    if op.startswith(("IMAD", "IMUL")):
+        return "imad"
+    if op.startswith(("LOP3", "LOP", "ISETP", "SEL", "PLOP3", "P2R", "R2P", "IMNMX",
+                      "POPC", "FLO", "PRMT", "BMSK", "VOTE")):
+        return "alu"
+    if op.startswith(("IADD3", "IADD", "VIADD", "LEA", "SHF", "SHL", "SHR", "MOV", "CS2R",
+                      "HFMA2.MMA", "IABS", "UIADD3", "UMOV", "ULEA", "USHF", "UIMAD", "ULOP3",
+                      "UISETP", "USEL")):
+        return "other"                    # HFMA2.MMA, CS2R: the compiler's moves
+    if op.startswith(("LDL", "STL")):
+        return "local"
+    if op.startswith(("LD", "ST", "ULDC", "ATOM", "RED")):
+        return "memory"
+    return "control"
+
+
+def sass_loop_counts(so: str, kernel: str) -> dict:
+    """The instructions of the largest loop body of `kernel` in the library
+    `so` (cuobjdump -sass: the span from a backward branch's target to the
+    branch), by sass_class."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    insts, labels, pending, inside = [], {}, [], False
+    for ln in text.splitlines():
+        s = ln.strip()
+        if "Function :" in s:
+            inside = f"{kernel}_kernel" in s
+            continue
+        if not inside:
+            continue
+        m = re.match(r"^(\.L_x_\d+):", s)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"^/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", s)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((lb, addr) for lb in pending)
+            pending = []
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            insts.append((addr, op, m.group(2)))
+    loops = []
+    for addr, op, body in insts:
+        if op.startswith("BRA"):
+            lab = re.search(r"(\.L_x_\d+)", body)
+            hexa = re.search(r"0x([0-9a-f]+)", body)
+            target = labels.get(lab.group(1)) if lab else int(hexa.group(1), 16) if hexa else None
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+    if not loops:
+        return {}
+    lo, hi = max(loops, key=lambda t: t[1] - t[0])
+    counts = {}
+    for addr, op, _ in insts:
+        if lo <= addr <= hi:
+            counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
+    return counts
 
 
 def _points(curve, seed: int, B: int, dev):
@@ -532,6 +677,7 @@ def main() -> int:
     from tpu_ecc_torch.curves.specs import get_curve
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import kfe
     from tpu_ecc_torch.ops import points as P
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.parallel import msm as M
@@ -557,9 +703,21 @@ def main() -> int:
           f"{list(K256_KERNELS)} for secp256k1, {list(P256_KERNELS)} for p256, "
           f"{[row_name(n, t) for t, n in probe_targets]} for the probes")
     for (cname, name), rep in reports.items():
-        regs = [ln.split(":", 1)[1].strip() for ln in rep.splitlines()
-                if "registers" in ln and "Used" in ln]
-        print(f"  {cname} {name}: {regs[0] if regs else 'no ptxas report'}")
+        print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
+    print("the 32-bit layer's kernels: ptxas, and the loop body in SASS against "
+          "the fe32 count")
+    for c, name in [(c, n) for c in curves for n in K.FE32_KERNELS
+                    if (c, n) in targets]:
+        so = K._target(name, c)[0]
+        with open(f"{so}.log") as fh:
+            regs, stack = ptxas_report(fh.read())
+        print(f"  {row_name(name, c)}: {regs}; {stack}")
+        if "0 bytes spill stores, 0 bytes spill loads" not in stack:
+            raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
+        model = kfe.fe32_counts(c)
+        print(f"    SASS loop body by class: {sass_loop_counts(so, name)}; fe32 count: "
+              f"padd {model['padd']}, load a coordinate {model['load']}, store "
+              f"{model['store']}")
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
@@ -568,13 +726,15 @@ def main() -> int:
     # -- 2. each kernel against its plain twin, at the main path's shapes ---
     rows = {}
 
-    def hold(name, label, kern, plain, reps, B=None, c=curve, library=None, **work):
-        """kern() against plain() (a tensor or a tuple of them), then kern's
-        ms over `reps` runs and its bound from K.work (B: the lanes, by
-        default the output's last axis) for target c (default secp256k1,
-        whose rows are named by the kernel alone; a field spec; None), and
-        the ms of library(), one PyTorch call that computes the same
-        function, where there is one."""
+    def hold(name, label, kern, plain, reps, B=None, c=curve, library=None,
+             compare=limb_diff, **work):
+        """kern() against plain() (a tensor or a tuple of them) by compare
+        (the largest limb difference, by default of the raw limbs), then
+        kern's ms over `reps` runs and its bound, the least over K.designs
+        of K.work (B: the lanes, by default the output's last axis) for
+        target c (default secp256k1, whose rows are named by the kernel
+        alone; a field spec; None), and the ms of library(), one PyTorch
+        call that computes the same function, where there is one."""
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -583,24 +743,33 @@ def main() -> int:
         plain_s = time.perf_counter() - t
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in zip(outs_k, outs_p))
-        if err != 0 or [a.shape for a in outs_k] != [b.shape for b in outs_p]:
+        if [a.shape for a in outs_k] != [b.shape for b in outs_p]:
+            raise AssertionError(f"{name} ({label}): output shapes differ from its twin's")
+        err = compare(outs_k, outs_p)
+        if err != 0:
             raise AssertionError(f"{name} ({label}) differs from its plain twin: "
                                  f"max abs limb difference {err}")
         ms = _time_ms(kern, reps)
         lib_ms = None if library is None else _time_ms(library, reps)
-        ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B, **work)
-        bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz)
+        by_design = {}
+        for design in K.designs(name):
+            ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B,
+                                 design=design, **work)
+            by_design[design] = (nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz))
+        bytes_s, ops_s = min(by_design.values(), key=max)
         bound_ms = 1e3 * max(bytes_s, ops_s)
         by = "bytes" if bytes_s > ops_s else "operations"
         key = row_name(name, c)
         extra = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
+        if len(by_design) > 1:
+            extra += " (bound by design: " + ", ".join(
+                f"{d} {1e3 * max(v):.4f} ms" for d, v in by_design.items()) + ")"
         if "int8" in ops:
             cores = op_seconds({**ops, "int8": 0}, clock_hz)
             extra += (f" (CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
                       f"{1e3 * ops['int8'] / INT8_OPS_PER_S:.4f} ms)")
-        print(f"  {key} [{label}]: limb-equal to its twin; kernel {ms:.3f} ms, "
+        same = "limb-equal" if compare is limb_diff else "equal mod p by canonical coordinates"
+        print(f"  {key} [{label}]: {same} to its twin; kernel {ms:.3f} ms, "
               f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by}){extra}")
         row = rows.setdefault(key, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -613,7 +782,8 @@ def main() -> int:
     b_l, b_pts = _points(curve, 2, 8192, dev)
     hold("padd_chain", "B=8192 repeat=16",
          lambda: K.padd_chain(curve, a_l, b_l, 16),
-         lambda: K.padd_chain_plain(curve, a_l, b_l, 16), 20, repeat=16)
+         lambda: K.padd_chain_plain(curve, a_l, b_l, 16), 20, compare=coord_diff(curve),
+         repeat=16)
 
     rng = np.random.default_rng(3)
     for spec, field in ((curve.scalar, 1), (curve.field, 0)):
@@ -659,7 +829,8 @@ def main() -> int:
     pb_l, pb_pts = _points(p256, 2, 8192, dev)
     hold("padd_chain", "p256 B=8192 repeat=16",
          lambda: K.padd_chain(p256, pa_l, pb_l, 16),
-         lambda: K.padd_chain_plain(p256, pa_l, pb_l, 16), 20, c=p256, repeat=16)
+         lambda: K.padd_chain_plain(p256, pa_l, pb_l, 16), 20, c=p256,
+         compare=coord_diff(p256), repeat=16)
     for spec, field in ((p256.scalar, 1), (p256.field, 0)):
         xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(4096)]
         x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
@@ -719,17 +890,21 @@ def main() -> int:
     skey, key2, val2, neg2 = M.sorted_windows(payload, keys[:per], negs[:per], MSM_LANES)
     C, lanes = key2.shape[0], key2[0].numel()
     seg_adds = int((key2[1:] == key2[:-1]).sum() + (key2[0] == nbuck).sum())
+    seg_ends = int(run_ends(key2).sum())
     print(f"hold: the Pippenger phases at the first group of {per} windows "
           f"(C = {C}, L = {MSM_LANES}, nbuck = {nbuck})")
+    print(f"  segscan: {seg_adds} adds, {seg_ends} run-end rows of {C * lanes}")
     hold("segscan", f"signed C={C} lanes={per}x{MSM_LANES}",
          lambda: K.segscan(curve, key2, val2, nbuck, neg2),
          lambda: K.segscan_plain(curve, key2, val2, nbuck, neg2), 3, B=lanes,
-         C=C, adds=seg_adds, signed=True)
+         compare=segscan_diff(curve, key2), C=C, adds=seg_adds, ends=seg_ends,
+         signed=True)
     hold("segscan", f"unsigned C=16 lanes={per}x{MSM_LANES}",
          lambda: K.segscan(curve, key2[:16], val2[:16], nbuck),
          lambda: K.segscan_plain(curve, key2[:16], val2[:16], nbuck), 3, B=lanes,
-         C=16, adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
-         signed=False)
+         compare=segscan_diff(curve, key2[:16]), C=16,
+         adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
+         ends=int(run_ends(key2[:16]).sum()), signed=False)
     scanned, last_key, tail, lead = K.segscan(curve, key2, val2, nbuck, neg2)
     fix_adds = sum(int((last_key[:, s:] == last_key[:, :-s]).sum())
                    for s in (1 << i for i in range(MSM_LANES.bit_length() - 1)))

@@ -1,46 +1,50 @@
-// padd_chain: out = a + repeat*b for a batch of points, a steady clamp after
-// every add — the batched point-add workload.
+// padd_chain: out = a + repeat*b for a batch of points — the batched
+// point-add workload and the headline point-adds/s.
 //
 // Replaces tpu_ecc/ops/pallas_kernels.py padd_chain_call (:426-459), which
 // ran the chain on [S, 128] VMEM tiles per grid block.
 //
-// Design: one thread per batch lane. Both points load into registers once
-// (limb-major [3, n, B] layout, so a warp's loads of one limb are
-// coalesced), the repeat loop runs inside the thread, and only the result is
-// written back. The add is the generated straight-line kfe_padd
-// (ops/kfe.py), called from one site inside a `#pragma unroll 1` loop so it
-// is compiled once.
+// Design: one thread per batch lane on the 32-bit field layer (fe32.cuh,
+// point32.cuh; the lane body is fe32::padd_chain_lane). The lane loads its
+// two points once from the 13-bit rows (limb-major [3, n, B], so a warp's
+// loads of one limb are coalesced) and converts them to 8 words a
+// coordinate, runs the repeat loop on the force-inlined RCB add, and stores
+// the result once, canonical, in 13-bit limbs. acc and q are 48 registers;
+// no field operation is a call, so nvcc interleaves the independent
+// products (X1X2, Y1Y2, Z1Z2, ...) and nothing goes through the stack.
 //
-// Bound: operations. A lane moves 3 * 3n words but runs `repeat` adds of
-// ~18.7k 32-bit integer operations each (the generator's count), so the
-// int32 issue rate, not memory, limits it. A k256 point is 60 words and the
-// convolution has 39 columns; the point arrays passed to the out-of-line
-// field functions live in local memory (a 3.6 KB stack frame per thread).
+// Bound: operations. A lane moves 9 * n words but runs `repeat` adds: 14
+// field multiplies (2 of them by b or 3b) of 64 wide products each plus
+// the reduction (secp256k1 folds by 2^32 + 977, P-256 runs CIOS), so the
+// multiply pipe and the issue rate, not memory, limit it (kernels.work,
+// design "fe32": 2.9k instructions an add on secp256k1, 4.3k on P-256;
+// the SASS has about twice that, the carries through 64-bit C arithmetic).
+// What is left between the time and the bound is latency: at B = 8192 the
+// 256 warps are fewer than the card's 528 schedulers, and each waits on
+// its own chain of dependent multiply-adds. The 13-bit design before it
+// called each multiply out of line through local memory (3.6 KB of stack
+// a thread) and ran 11.2k (secp256k1) or 12.6k (P-256) instructions an
+// add.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): 188 registers (secp256k1), 168
+// (P-256), 0 bytes of stack, spill stores and spill loads; chip_smoke.py
+// prints them at each build and fails on a spill.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_padd_chain.cuh"
+#include "point32.cuh"
 
-#define PN (3 * KFE_FP_N)
+// 32 threads a block spread B = 8192 lanes over the most SMs; 64 and 128
+// measured within 2.3% of it on an H100 (PERF.md)
 #define THREADS 32
 
-__global__ void padd_chain_kernel(const uint32_t* __restrict__ a,
-                                  const uint32_t* __restrict__ b,
-                                  uint32_t* __restrict__ out, int B,
-                                  int repeat) {
+__global__ void __launch_bounds__(THREADS)
+    padd_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                      uint32_t* __restrict__ out, int B, int repeat) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  uint32_t acc[PN], q[PN], nxt[PN];
-  for (int k = 0; k < PN; ++k) {
-    acc[k] = a[(size_t)k * B + lane];
-    q[k] = b[(size_t)k * B + lane];
-  }
-#pragma unroll 1
-  for (int r = 0; r < repeat; ++r) {
-    kfe_padd(acc, q, nxt);
-    for (int k = 0; k < PN; ++k) acc[k] = nxt[k];
-  }
-  for (int k = 0; k < PN; ++k) out[(size_t)k * B + lane] = acc[k];
+  fe32::padd_chain_lane<Curve32>(a, b, out, B, lane, repeat);
 }
 
 extern "C" int padd_chain_launch(const void* a, const void* b, void* out,

@@ -4,87 +4,62 @@
 //
 // Replaces tpu_ecc/ops/pallas_kernels.py segscan_call (:463-597).
 //
-// Design: one thread per lane. The TPU's sequential row-chunk grid axis,
-// which carried the running sum and the previous key in VMEM scratch,
-// becomes the row loop inside the thread; the sum stays in the thread for
-// the whole chunk. Per row r:
-//   1. signed mode: y of a point whose digit was negative is replaced by
-//      ksteady(kneg(y)), a select and never a branch on the sign;
-//   2. key == previous key: acc = ksteady(padd(acc, v)); else acc = v. The
-//      previous key starts at the sentinel nbuck, which in signed mode is
-//      also the key of a zero digit: such a lane's first row computes
-//      padd(O, v), as the TPU kernel and the XLA scan do (the same point,
-//      other limbs). The add is skipped where the key changed: keys are
-//      public, and the skipped add is one whose result the TPU discarded;
-//   3. scanned[r] = acc, and lead = acc while the key equals the lane's
-//      first key (monotone keys: the last such row ends the leading run).
-//      lead lives in its output buffer, written under that condition, not
-//      in a fourth register array.
-// Arrays are [C, .., L] with the lane fastest, so a warp's loads and stores
-// of one word are coalesced.
+// Design: one thread per lane on the 32-bit field layer (fe32.cuh,
+// point32.cuh; the lane body is fe32::segscan_lane). The TPU's sequential
+// row-chunk grid axis, which carried the running sum and the previous key
+// in VMEM scratch, becomes the row loop inside the thread; the sum (24
+// registers) stays in the thread for the whole chunk. Per row r:
+//   1. the row's 60 words load coalesced (arrays [C, .., L], lane fastest)
+//      and convert to 8 words a coordinate;
+//   2. signed mode: y of a point whose digit was negative becomes p - y, a
+//      select and never a branch on the sign;
+//   3. key == previous key: acc = padd(acc, v) (force-inlined); else
+//      acc = v. The previous key starts at the sentinel nbuck, which in
+//      signed mode is also the key of a zero digit: such a lane's first row
+//      computes padd(O, v), as the TPU kernel and the XLA scan do. The add
+//      is skipped where the key changed: keys are public;
+//   4. only where row r ends a run (key[r + 1] != key[r], or r = C - 1),
+//      the one row bucket_lookup reads, acc is stored to scanned[r], and to
+//      lead if the key is the lane's first. The other rows of scanned are
+//      left unwritten.
+// Stores are canonical 13-bit limbs; last_key, tail, lead as before.
 //
-// Bound: operations — one complete add (11204 32-bit integer instructions,
-// the generator's count) per row whose key repeats; the bytes (the C rows in
-// and out, 2 * 240 B per point) are about half as long at the card's rate.
+// Bound: operations — one complete add per row whose key repeats (2.9k
+// instructions in this design's count, 11.2k in the 13-bit one before it,
+// which called every multiply out of line through local memory) against
+// 240 B read per row; the bytes are about 70% as long at the card's rate.
+// The stores fell from every row to the run ends: 1 row in 68 at 2^20
+// points, 8192 buckets a window, 8192 lanes.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.8): 254 registers, 0 bytes of stack,
+// spill stores and spill loads; with 64-bit row offsets it spilled 72 B
+// (the hoisted addresses of the tail stores), hence the 32-bit offsets.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_segscan.cuh"
+#include "point32.cuh"
 
-#define N KFE_FP_N
-#define PN (3 * N)
-#define THREADS 32
+// 128 threads a block. Launched at 32, 64 and 128 under
+// __launch_bounds__(128), the times on an H100 stayed within 4% of one
+// another; built under __launch_bounds__(64) (252 registers, not 254),
+// the kernel ran 8% slower (PERF.md)
+#define THREADS 128
 
-__global__ void segscan_kernel(const uint32_t* __restrict__ key2,
-                               const uint32_t* __restrict__ val2,
-                               const uint32_t* __restrict__ neg2,
-                               uint32_t* __restrict__ scanned,
-                               uint32_t* __restrict__ last_key,
-                               uint32_t* __restrict__ tail,
-                               uint32_t* __restrict__ lead, int C, int L,
-                               uint32_t nbuck) {
+__global__ void __launch_bounds__(THREADS)
+    segscan_kernel(const uint32_t* __restrict__ key2, const uint32_t* __restrict__ val2,
+                   const uint32_t* __restrict__ neg2, uint32_t* __restrict__ scanned,
+                   uint32_t* __restrict__ last_key, uint32_t* __restrict__ tail,
+                   uint32_t* __restrict__ lead, int C, int L, uint32_t nbuck) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  uint32_t acc[PN], v[PN], nxt[PN], yn[N];
-  kfe_fp_one(yn);
-  for (int i = 0; i < N; ++i) {  // the identity (0 : 1 : 0)
-    acc[i] = 0u;
-    acc[N + i] = yn[i];
-    acc[2 * N + i] = 0u;
-  }
-  const uint32_t fk = key2[lane];
-  uint32_t pk = nbuck;
-
-#pragma unroll 1
-  for (int r = 0; r < C; ++r) {
-    const size_t kr = (size_t)r * L + lane;
-    const uint32_t k = key2[kr];
-    const uint32_t* row = val2 + (size_t)r * PN * L + lane;
-    for (int j = 0; j < PN; ++j) v[j] = row[(size_t)j * L];
-    if (neg2 != nullptr) {
-      const bool ng = neg2[kr] != 0u;
-      kfe_fp_neg(v + N, yn);
-      for (int i = 0; i < N; ++i) v[N + i] = ng ? yn[i] : v[N + i];
-    }
-    if (k == pk) {
-      kfe_padd(acc, v, nxt);
-      for (int j = 0; j < PN; ++j) acc[j] = nxt[j];
-    } else {
-      for (int j = 0; j < PN; ++j) acc[j] = v[j];
-    }
-    uint32_t* out = scanned + (size_t)r * PN * L + lane;
-    for (int j = 0; j < PN; ++j) out[(size_t)j * L] = acc[j];
-    if (k == fk) {
-      for (int j = 0; j < PN; ++j) lead[(size_t)j * L + lane] = acc[j];
-    }
-    pk = k;
-  }
-  last_key[lane] = pk;
-  for (int j = 0; j < PN; ++j) tail[(size_t)j * L + lane] = acc[j];
+  fe32::segscan_lane<Curve32>(key2, val2, neg2, scanned, last_key, tail, lead, C, L,
+                              nbuck, lane);
 }
 
 // key2 [C, L]; val2 [C, 3, n, L]; neg2 [C, L] or null (unsigned digits);
-// scanned [C, 3, n, L]; last_key [L]; tail, lead [3, n, L].
+// scanned [C, 3, n, L] (run-end rows written); last_key [L]; tail, lead
+// [3, n, L].
 extern "C" int segscan_launch(const void* key2, const void* val2,
                               const void* neg2, void* scanned, void* last_key,
                               void* tail, void* lead, int C, int L, int nbuck,

@@ -25,23 +25,33 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays, and calls straight-line field and point functions
-that ops/kfe.py generates from the KFE bound ledger into a header per
-(target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the
+[.., n, B] uint32 arrays. Two of them, `padd_chain` and `segscan`
+(FE32_KERNELS), run on the hand-written 32-bit field layer
+(csrc/fe32.cuh, csrc/point32.cuh): they convert their 13-bit rows to 8
+words a coordinate on load, keep the point in registers, and store
+canonical 13-bit limbs; their generated header holds only the curve's
+constants (`kfe.fe32_header`). The others call straight-line field and
+point functions that ops/kfe.py generates from the KFE bound ledger into a
+header per (target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the
 a = -3 ones for P-256 and the other a = -3 curves, and the GLV multiply by
 beta only for a curve that has an endomorphism, `functions`), a bare field
 spec (`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
 None (`dma_gather`, which has no generated header). The
 build is nvcc by hand into a shared library with a plain C interface, bound
 with ctypes, at first use (or by `build_targets`) into build/kernels/ beside
-the package; a content hash of the source, the header and the flags names the
-library, so a changed source rebuilds.
+the package; a content hash of the source, the csrc/ headers it includes,
+the generated header and the flags names the library, so a changed source
+or include rebuilds.
 
 Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb.
+so a kernel's output equals its twin's limb for limb; for the two kernels
+on the 32-bit layer, each projective coordinate equals the twin's mod p
+(the same formulas in the same order; the limb plan differs, and the
+kernels store canonical values), and `segscan` writes only the run-end
+rows of `scanned`.
 
 Limbs cross to the kernels as int32 tensors that carry the uint32 bits:
 steady limbs are below 2^13, so the conversion from the port's int64 limbs
@@ -59,6 +69,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -86,7 +97,7 @@ KERNELS = {
              "tpu_ecc/ops/pallas_kernels.py:379"),
     "pdouble": ("pdouble.cu", ("pdouble",), "pdouble_launch", [_VP, _VP, _I],
                 "tpu_ecc/ops/pallas_kernels.py:403"),
-    "padd_chain": ("padd_chain.cu", ("padd",), "padd_chain_launch",
+    "padd_chain": ("padd_chain.cu", (), "padd_chain_launch",
                    [_VP, _VP, _VP, _I, _I],
                    "tpu_ecc/ops/pallas_kernels.py:426"),
     "pow": ("pow.cu", ("fp_mul", "fp_sqr", "fn_mul", "fn_sqr"), "pow_launch",
@@ -98,7 +109,7 @@ KERNELS = {
     "genmul": ("genmul.cu", ("padd_mixed", "fp_neg"), "genmul_launch",
                [_VP, _VP, _VP, _VP, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:1048"),
-    "segscan": ("segscan.cu", ("padd", "fp_neg"), "segscan_launch",
+    "segscan": ("segscan.cu", (), "segscan_launch",
                 [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I],
                 "tpu_ecc/ops/pallas_kernels.py:463"),
     "fixup": ("fixup.cu", ("padd",), "fixup_launch",
@@ -121,6 +132,9 @@ KERNELS = {
                      "ladder_probe_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I],
                      "tools/profile_ladder.py:72"),
 }
+
+FE32_KERNELS = ("padd_chain", "segscan")
+"""The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
 CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
@@ -165,13 +179,40 @@ def target_name(target) -> str:
     return "any" if target is None else target.name
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def includes(src_file: str) -> list:
+    """The csrc/ headers that `src_file` includes, directly or through one
+    another, sorted (a generated header, which is not in csrc/, is not
+    among them)."""
+    found, todo = set(), [src_file]
+    while todo:
+        with open(os.path.join(CSRC, todo.pop())) as fh:
+            for inc in _INCLUDE.findall(fh.read()):
+                if inc not in found and os.path.exists(os.path.join(CSRC, inc)):
+                    found.add(inc)
+                    todo.append(inc)
+    return sorted(found)
+
+
+def _header(name: str, target) -> str:
+    if target is None:
+        return ""
+    if name in FE32_KERNELS:
+        return kfe.fe32_header(target)
+    return kfe.kernel_header(target, functions(name, target))[0]
+
+
 def _target(name: str, target):
     """(library path, build directory, generated header) for one kernel."""
     src_file = KERNELS[name][0]
-    header = "" if target is None else kfe.kernel_header(target, functions(name, target))[0]
-    with open(os.path.join(CSRC, src_file)) as fh:
-        src = fh.read()
-    key = hashlib.sha256("\0".join((header, src) + NVCC_FLAGS).encode())
+    header = _header(name, target)
+    texts = []
+    for f in [src_file] + includes(src_file):
+        with open(os.path.join(CSRC, f)) as fh:
+            texts.append(fh.read())
+    key = hashlib.sha256("\0".join((header, *texts) + NVCC_FLAGS).encode())
     d = os.path.join(BUILD_DIR, f"{target_name(target)}-{name}-{key.hexdigest()[:16]}")
     return os.path.join(d, f"lib{name}.so"), d, header
 
@@ -200,7 +241,7 @@ def build_targets(targets) -> dict:
         with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
             fh.write(header)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", d, "-o", tmp,
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", d, "-I", CSRC, "-o", tmp,
                os.path.join(CSRC, KERNELS[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -260,6 +301,12 @@ def _check(t: torch.Tensor, shape, what: str) -> None:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_words(t: torch.Tensor, what: str) -> None:
+    """The 32-bit layer's kernels index their arrays with 32-bit offsets."""
+    if t.numel() >= 1 << 32:
+        raise ValueError(f"{what}: {t.numel()} words, the kernel takes below 2^32")
 
 
 def _curve_of(spec: F.FieldSpec):
@@ -334,13 +381,15 @@ def pdouble_points(a: P.Point) -> P.Point:
 def padd_chain(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor,
                repeat: int) -> torch.Tensor:
     """a + repeat*b for steady point limbs a, b [3, n, B], with a steady
-    clamp after every add -> steady [3, n, B]."""
+    clamp after every add -> steady [3, n, B]. The kernel (on the 32-bit
+    layer) returns each coordinate canonical: equal mod p to the twin's."""
     if a.device.type == "cpu":
         return padd_chain_plain(curve, a, b, repeat)
     B = a.shape[-1]
     shape = (3, curve.field.n_limbs, B)
     _check(a, shape, "padd_chain a")
     _check(b, shape, "padd_chain b")
+    _check_words(a, "padd_chain a")
     a32, b32 = _u32(a), _u32(b)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     _launch("padd_chain", curve, a.device, a32.data_ptr(), b32.data_ptr(),
@@ -526,7 +575,13 @@ def segscan(curve: CurveSpec, key2: torch.Tensor, val2: torch.Tensor, nbuck: int
     [3, n, *lanes]). The previous key starts at the sentinel `nbuck`; `lead`
     is the scan's value at the end of each lane's leading run (the rows whose
     key is the lane's first). Lanes are independent, so several windows can
-    go side by side."""
+    go side by side.
+
+    The kernel (on the 32-bit layer) writes row r of `scanned` only where r
+    ends a run, key2[r + 1] != key2[r] or r = C - 1: the one row of a run
+    that `bucket_lookup` reads. The other rows are left unwritten (whatever
+    torch.empty gave). Its values are canonical, each coordinate equal mod
+    p to the twin's, which writes every row."""
     if key2.device.type == "cpu":
         return segscan_plain(curve, key2, val2, nbuck, neg2)
     C, lanes = key2.shape[0], tuple(key2.shape[1:])
@@ -535,6 +590,7 @@ def segscan(curve: CurveSpec, key2: torch.Tensor, val2: torch.Tensor, nbuck: int
     _check(val2, (C, 3, n, *lanes), "segscan val2")
     if neg2 is not None:
         _check(neg2, (C, *lanes), "segscan neg2")
+    _check_words(val2, "segscan val2")
     k32, v32 = _u32(key2), _u32(val2)
     g32 = None if neg2 is None else _u32(neg2)
     dev = key2.device
@@ -887,18 +943,33 @@ def _total(*terms) -> dict:
     return {c: sum(k * cnt[c] for k, cnt in terms) for c in kfe.INSTRUCTION_CLASSES}
 
 
-def work(name: str, target, B: int, **kw) -> tuple:
+def designs(name: str) -> tuple:
+    """The designs whose instruction counts `work` gives for kernel `name`:
+    the 13-bit generated code ("kfe") for every kernel, and the 32-bit
+    layer ("fe32") for FE32_KERNELS, which now run on it. A row's bound is
+    the least of its designs' times."""
+    return ("kfe", "fe32") if name in FE32_KERNELS else ("kfe",)
+
+
+def work(name: str, target, B: int, design: str = "kfe", **kw) -> tuple:
     """(32-bit integer instructions by class, bytes that must move) of one
     call: padd(), pdouble(), padd_chain(repeat=), pow(field=0|1, e=),
-    ladder(T=, nw=, glv=), genmul(nw=), segscan(C=, adds=, signed=),
+    ladder(T=, nw=, glv=), genmul(nw=), segscan(C=, adds=, ends=, signed=),
     fixup(adds=), bucket_reduce(groups=), horner(nw=, w=) on a curve;
     fmul_chain(), mxu_chain() on a field spec; dma_gather(M=) with target
     None; ladder_probe(nw=, variant=). B is the lanes of all windows
     (segscan, fixup), the buckets of one window (bucket_reduce), 1
     (horner) or the row width W (dma_gather); `adds` counts the adds that
     the call's data needs (rows whose key repeats; lanes whose partner is
-    in their run, over all steps). `mxu_chain` adds the int8 tensor-core
-    operations (two per multiply-add) under "int8"."""
+    in their run, over all steps), `ends` the run-end rows over all lanes
+    (the rows segscan writes). `mxu_chain` adds the int8 tensor-core
+    operations (two per multiply-add) under "int8". `design` (see
+    `designs`): "kfe" counts the generated 13-bit code, "fe32" the 32-bit
+    layer (kfe.fe32_counts), whose IMAD.WIDE.U32 are under "wide"."""
+    if design == "fe32":
+        return _work_fe32(name, target, B, **kw)
+    if design != "kfe":
+        raise ValueError(f"unknown design {design!r}")
     if name == "dma_gather":        # one XOR per word gathered
         M = kw["M"]
         return {"imad": 0, "alu": M * B, "other": 0}, (M * B + M + B) * 4
@@ -974,7 +1045,7 @@ def work(name: str, target, B: int, **kw) -> tuple:
         ops = _total((kw["adds"], c["padd"]),
                      (C * B if signed else 0, c["fp_neg"]),
                      (C * B if signed else 0, {"imad": 0, "alu": n, "other": 0}))
-        return ops, (C * (2 * pn + 1 + signed) + 2 * pn + 1) * 4 * B
+        return ops, _segscan_bytes(pn, B, **kw)
     if name == "fixup":
         return _total((kw["adds"] + B, c["padd"])), (3 * pn + 2) * 4 * B
     if name == "bucket_reduce":
@@ -986,3 +1057,35 @@ def work(name: str, target, B: int, **kw) -> tuple:
         return (_total((nw * w, c["pdouble"]), (nw, c["padd"])),
                 (nw + 1) * pn * 4)
     raise KeyError(name)
+
+
+def _segscan_bytes(pn: int, B: int, C: int, ends: int, signed: bool, **_) -> int:
+    """Every row, key and sign read once; the run-end rows, tail, lead and
+    last_key written once."""
+    return (C * (pn + 1 + signed) + 2 * pn + 1) * 4 * B + ends * pn * 4
+
+
+def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
+    """`work` for the 32-bit layer: its functions' counts (kfe.fe32_counts)
+    over the call. A row converts on load (3 coordinates) and on store."""
+    c = kfe.fe32_counts(curve)
+    pn = 3 * curve.field.n_limbs
+
+    def total(*terms) -> dict:
+        return {k: sum(m * cnt[k] for m, cnt in terms) for k in kfe.FE32_CLASSES}
+
+    if name == "padd_chain":
+        ops = total((kw["repeat"] * B, c["padd"]), (6 * B, c["load"]), (3 * B, c["store"]))
+        return ops, 3 * pn * 4 * B
+    if name == "segscan":
+        C, signed = kw["C"], kw["signed"]
+        n = kfe.FE32_N
+        # per row: the load, and (signed) the negation and its select of n
+        # words; an add per repeated key; the stores of the run ends, and
+        # of tail and lead (one leading run a lane)
+        ops = total((3 * C * B, c["load"]), (kw["adds"], c["padd"]),
+                    (C * B if signed else 0, c["neg"]),
+                    (C * B if signed else 0, {"wide": 0, "imad": 0, "alu": n, "other": 0}),
+                    (3 * (kw["ends"] + 2 * B), c["store"]))
+        return ops, _segscan_bytes(pn, B, **kw)
+    raise KeyError(f"{name} does not run on the 32-bit layer")

@@ -26,6 +26,9 @@ exactly as tpu_ecc's Pallas bodies trace them (pallas_kernels.py:56-104,
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 
 from ..utils.bigint import int_to_limbs
@@ -956,3 +959,240 @@ def kernel_header(target, names) -> tuple[str, dict]:
         tops.append(src)
     parts += [src for _, src, _ in lib.values()] + tops
     return "".join(parts), counts
+
+
+# ---------------------------------------------------------------------------
+# the 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh): its per-curve
+# constants and its instruction count
+# ---------------------------------------------------------------------------
+
+FE32_N = 8
+"""Words of 32 bits per element in the builds of the 32-bit layer."""
+
+FE32_CLASSES = ("wide",) + INSTRUCTION_CLASSES
+"""The 32-bit layer's instruction classes: `wide` is IMAD.WIDE.U32 (the
+32 x 32 -> 64 multiply-add, on the FMA pipe), the others as
+INSTRUCTION_CLASSES."""
+
+
+def _words(v: int, n: int) -> list:
+    return [(v >> (32 * i)) & _M32 for i in range(n)]
+
+
+def fe32_constants(curve, n_words: int = FE32_N) -> dict:
+    """The constants of the 32-bit layer for `curve` (N words), with the
+    carry analysis of csrc/fe32.cuh checked for it: p, F = 2^(32N) mod p,
+    the domain (Montgomery with R32 = 2^(32N) where the 13-bit plan is
+    Montgomery) and its maps to and from the 13-bit plan's R13, the
+    formula's b multiplier in the domain, and the 13-bit rows' limb plan."""
+    if curve.strategy not in ("a0", "a_minus3"):
+        raise NotImplementedError(
+            f"{curve.name}: the {curve.strategy} formulas are not ported to the 32-bit layer")
+    f = curve.field
+    p, N = f.p, n_words
+    W = 1 << (32 * N)
+    assert W // 2 < p < W, f"{curve.name}: the 32-bit layer needs 2^(32N-1) < p < 2^(32N)"
+    mont = f.kind == "mont"
+    F = W % p
+    FW = -(-F.bit_length() // 32)
+    NL, LB = f.n_limbs, f.limb_bits
+    assert NL * LB <= 32 * (N + 1)
+    h_rows = ((1 << (NL * LB)) - 1) >> (32 * N)    # the rows' top word
+    assert (h_rows + 1) * F <= W, "reduce_top of a loaded row"
+    if not mont:
+        assert F * (F + 1) <= W and 2 * FW - 1 <= N, "the solinas reduction"
+    r32 = W % p
+    enc = (lambda v: v * r32 % p) if mont else (lambda v: v % p)
+    b_plain = (3 * curve.b if curve.strategy == "a0" else curve.b) % p
+    bsmall = b_plain if b_plain < (1 << 16) else 0
+    assert bsmall * F <= W, "mul_small by the b multiplier"
+    return {
+        "N": N, "NL": NL, "LB": LB, "FW": FW, "MONT": mont, "A0": curve.strategy == "a0",
+        "N0": (-pow(p, -1, 1 << 32)) % (1 << 32), "BSMALL": bsmall,
+        "p": _words(p, N), "f": _words(F, FW), "one": _words(enc(1), N),
+        "bmul": _words(enc(b_plain), N),
+        # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
+        "to32": _words(r32 * r32 * pow(f.W, -1, p) % p if mont else 0, N),
+        "to13": _words(f.W % p if mont else 0, N),
+    }
+
+
+def _word_function(name: str, words) -> str:
+    chain = "".join(f"i == {i} ? 0x{w:08x}u : " for i, w in enumerate(words))
+    return (f"  static __host__ __device__ constexpr uint32_t {name}(int i) {{\n"
+            f"    return {chain}0u;\n  }}\n")
+
+
+def fe32_header(curve) -> str:
+    """The generated header of a kernel on the 32-bit layer: the traits
+    class `Curve32` that csrc/fe32.cuh and csrc/point32.cuh take, with the
+    constants of `fe32_constants` (each word array a constexpr function of
+    the word index, folded where the layer's loops are unrolled)."""
+    k = fe32_constants(curve)
+    ints = "".join(f"  static constexpr int {n} = {k[n]};\n" for n in ("N", "NL", "LB", "FW"))
+    flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n" for n in ("MONT", "A0"))
+    words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n" for n in ("N0", "BSMALL"))
+    funcs = "".join(_word_function(n, k[n]) for n in ("p", "f", "one", "bmul", "to32", "to13"))
+    return ("// Generated by tpu_ecc_torch/ops/kfe.py (fe32_header). Do not edit.\n"
+            f"// The 32-bit field layer's constants for {curve.name}.\n"
+            "#pragma once\n#include <stdint.h>\n"
+            "#ifndef __CUDACC__\n#ifndef __host__\n#define __host__\n#endif\n"
+            "#ifndef __device__\n#define __device__\n#endif\n#endif\n"
+            f"struct Curve32 {{\n{ints}{flags}{words}{funcs}}};\n")
+
+
+class _Tally:
+    """Instruction counts by FE32_CLASSES, added up by the mirrors of the
+    header's functions in `fe32_counts`."""
+
+    def __init__(self):
+        self.c = dict.fromkeys(FE32_CLASSES, 0)
+
+    def __call__(self, **kw) -> "_Tally":
+        for k, v in kw.items():
+            self.c[k] += v
+        return self
+
+    def mac(self, k=None, addends: int = 2) -> None:
+        """One `mac(a, k, r, c)`: a multiplier k (None where it is a
+        variable) and how many of r, c may be nonzero. A product is one
+        IMAD.WIDE.U32, which adds one 64-bit addend; a second addend is one
+        add. A constant 0 needs an add; a power of two or 2^32 - 1 no
+        multiply, a shift or (a << 32) - a in two instructions."""
+        if k == 0:
+            self(other=1)
+        elif k is not None and (k & (k - 1) == 0 or k == _M32):
+            self(other=2)
+        else:
+            self(wide=1, other=max(0, addends - 1))
+
+
+_POINT32 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "csrc", "point32.cuh")
+_PADD_FE32 = {"a0": "padd_a0", "a_minus3": "padd_am3"}
+_FE32_CALL = re.compile(r"\b(mul_b|mul|add|sub)<C>\(")
+
+
+def padd_fe32_ops(strategy: str) -> dict:
+    """{mul, mul_b, add, sub: calls} in the body of the add for `strategy`
+    (csrc/point32.cuh `padd_a0` or `padd_am3`), read from the header."""
+    with open(_POINT32) as fh:
+        text = fh.read()
+    body = re.search(r"FE32_FN Pt<C> %s\(.*?\) \{\n(.*?)\n\}" % _PADD_FE32[strategy],
+                     text, re.S)
+    if body is None:
+        raise ValueError(f"{_POINT32}: no {_PADD_FE32[strategy]} body")
+    ops = dict.fromkeys(("mul", "mul_b", "add", "sub"), 0)
+    for op in _FE32_CALL.findall(body.group(1)):
+        ops[op] += 1
+    return ops
+
+
+def fe32_counts(curve) -> dict:
+    """The instructions each function of the 32-bit layer needs at least, by
+    class (FE32_CLASSES), counted from the structure of csrc/fe32.cuh and
+    csrc/point32.cuh with the curve's constants: one instruction per word
+    of an add, subtract or select, one IMAD.WIDE.U32 per product (plus an
+    add where it has a second addend), none for a multiply by a constant 0,
+    a power of two or 2^32 - 1, by N0 = 1 or by a word of all ones masked
+    (see `_Tally.mac`), and one shift-add
+    (LEA) per limb part packed or one funnel shift and one AND per limb
+    unpacked. Returns {name: counts} for add, sub, neg, mul, mul_b, load
+    (a 13-bit coordinate to the domain), store (back) and padd."""
+    k = fe32_constants(curve)
+    N, FW, NL, LB = k["N"], k["FW"], k["NL"], k["LB"]
+    P, Fw = k["p"], k["f"]
+
+    def reduce_once(t):
+        t(other=N, alu=1 + N)              # subtract p, the flag, the selects
+
+    def add(t):
+        t(other=N)
+        reduce_once(t)
+
+    def sub(t):
+        masked = sum(1 for w in P if w not in (0, _M32))
+        t(other=2 * N + 1, alu=masked)     # a - b, the mask, + (p & mask)
+
+    def fold(t):
+        for w in Fw:
+            t.mac(w, addends=2)
+        t(other=N - FW)
+
+    def reduce_top(t):
+        fold(t)
+        fold(t)
+        reduce_once(t)
+
+    def mul_wide(t):
+        for i in range(N):
+            for j in range(N):
+                t.mac(None, addends=(i > 0) + (j > 0))
+
+    def reduce_solinas(t):
+        for j in range(FW):
+            for _ in range(N):
+                t.mac(Fw[j], addends=2)
+            t(other=FW - j)
+        for j in range(FW):
+            for _ in range(FW):
+                t.mac(Fw[j], addends=2)
+            t(other=N - FW - j + 1)
+        fold(t)
+        reduce_once(t)
+
+    def mul_mont(t):
+        for i in range(N):
+            for j in range(N):
+                t.mac(None, addends=(i > 0) + (j > 0))
+            t(other=1, imad=int(k["N0"] != 1))
+            for j in range(N):
+                t.mac(P[j], addends=2)
+            t(other=2)
+        reduce_once(t)
+
+    def mul(t):
+        if k["MONT"]:
+            mul_mont(t)
+        else:
+            mul_wide(t)
+            reduce_solinas(t)
+
+    def mul_b(t):
+        if k["BSMALL"]:
+            t(wide=N)
+            reduce_top(t)
+        else:
+            mul(t)
+
+    def load(t):
+        filled = set()
+        for i in range(NL):
+            w, off = divmod(i * LB, 32)
+            if off or w in filled:
+                t(other=1)
+            filled.add(w)
+            if off + LB > 32:
+                t(other=1)
+                filled.add(w + 1)
+        reduce_top(t)
+        if k["MONT"]:
+            mul_mont(t)
+
+    def store(t):
+        if k["MONT"]:
+            mul_mont(t)
+        t(other=sum(1 for i in range(NL) if (i * LB) % 32), alu=NL)
+
+    fns = {"add": add, "sub": sub, "neg": sub, "mul": mul, "mul_b": mul_b,
+           "load": load, "store": store}
+    out = {}
+    for name, fn in fns.items():
+        t = _Tally()
+        fn(t)
+        out[name] = t.c
+    padd = _Tally()
+    for op, times in padd_fe32_ops(curve.strategy).items():
+        padd(**{c: times * v for c, v in out[op].items()})
+    out["padd"] = padd.c
+    return out

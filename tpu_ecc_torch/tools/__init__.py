@@ -6,7 +6,8 @@ runs as
 
 on the card unless `--device cpu` is given (the kernels' plain twins; a CPU
 time says nothing of the card). Each prints its measurements and its `main`
-returns them.
+returns them. `bench_imad_wide`, the port's own, runs on the card only: it
+measures the IMAD.WIDE.U32 rate that the 32-bit layer's bound assumes.
 """
 
 from __future__ import annotations
