@@ -10,20 +10,22 @@
    secp256k1 forced onto Montgomery, k256mxu.fp; mxu_chain for the two
    Montgomery fields; ladder_probe for secp256k1); then the native signing
    code (g++). Prints the seconds it took and ptxas's registers and stack
-   for each. The two kernels on the 32-bit field layer (padd_chain for
-   both curves, segscan) must show 0 bytes of spill stores and loads; for
-   each, the instructions of its loop body in the built SASS (cuobjdump
-   -sass), by class, print beside the count of kernels.work's "fe32"
-   design.
+   for each. The kernels on the 32-bit field layer (padd_chain, ladder and
+   genmul for both curves, segscan) must show 0 bytes of spill stores and
+   loads; for each, the instructions of its loop bodies in the built SASS
+   (cuobjdump -sass), by class, print beside the count of kernels.work's
+   "fe32" design.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
-   for padd_chain and segscan, which run on the 32-bit layer and store
-   canonical values, zero difference between the canonical limbs of each
-   projective coordinate, segscan's `scanned` at its run-end rows only):
-   padd_chain at B = 8192, repeat 16; pow on the scalar field (e = n - 2)
-   and the base field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at
-   B = 4096 and with glv=False, T = 1 (65 windows); genmul (the comb k*G)
-   at B = 4096, 65 windows, on random scalars plus 0 and n - 1; padd and
+   for the kernels on the 32-bit layer, which store canonical values, zero
+   difference between the canonical limbs of each projective coordinate,
+   segscan's `scanned` at its run-end rows only; each such hold prints its
+   warps a scheduler): padd_chain at B = 8192, repeat 16; pow on the scalar
+   field (e = n - 2) and the base field (e = p - 2) at B = 4096; ladder with
+   glv=True, T = 2 at B = 4096, with glv=False, T = 1 (65 windows), and at
+   the Straus MSM's shape (T = 8 with GLV at the 512 lanes msm() gives 4096
+   points); genmul (the comb k*G) at B = 4096, 65 windows, on random
+   scalars plus 0 and n - 1; padd and
    pdouble at B = 8192. Then the P-256 builds at the P-256 path's shapes:
    padd and pdouble, padd_chain at B = 8192, repeat 16, pow on both fields
    at B = 4096, ladder with T = 2 and no GLV (65 windows) at B = 4096, and
@@ -224,11 +226,12 @@ def segscan_diff(curve, key2):
 
 
 def ptxas_report(log: str) -> tuple:
-    """(registers line, stack and spill line) of ptxas's -v report."""
+    """(registers, stack and spill) of ptxas's -v report, each function's
+    (a template kernel has one an instance) joined by " | "."""
     regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
             if "registers" in ln and "Used" in ln]
     stack = [ln.strip() for ln in log.splitlines() if "stack frame" in ln]
-    return (regs[0] if regs else "no ptxas report", stack[0] if stack else "")
+    return (" | ".join(regs) or "no ptxas report", " | ".join(stack))
 
 
 def sass_class(op: str) -> str:
@@ -252,10 +255,17 @@ def sass_class(op: str) -> str:
     return "control"
 
 
-def sass_loop_counts(so: str, kernel: str) -> dict:
-    """The instructions of the largest loop body of `kernel` in the library
-    `so` (cuobjdump -sass: the span from a backward branch's target to the
-    branch), by sass_class."""
+SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E", "ladder_mont_kernel")}
+"""The functions whose SASS `sass_loop_counts` reads, where they are not
+`<kernel>_kernel`: the ladder's instance for full blocks, one a build
+(csrc/ladder.cu)."""
+
+
+def sass_loop_counts(so: str, kernel: str) -> list:
+    """The instructions of each loop body of `kernel` (its function, or
+    SASS_FUNCTION's) in the library `so` (cuobjdump -sass: the span from a
+    backward branch's target to the branch), by sass_class, the largest
+    first (an outer loop's count holds its inner loops')."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
@@ -263,7 +273,7 @@ def sass_loop_counts(so: str, kernel: str) -> dict:
     for ln in text.splitlines():
         s = ln.strip()
         if "Function :" in s:
-            inside = f"{kernel}_kernel" in s
+            inside = any(f in s for f in SASS_FUNCTION.get(kernel, (f"{kernel}_kernel",)))
             continue
         if not inside:
             continue
@@ -287,14 +297,14 @@ def sass_loop_counts(so: str, kernel: str) -> dict:
             target = labels.get(lab.group(1)) if lab else int(hexa.group(1), 16) if hexa else None
             if target is not None and target <= addr:
                 loops.append((target, addr))
-    if not loops:
-        return {}
-    lo, hi = max(loops, key=lambda t: t[1] - t[0])
-    counts = {}
-    for addr, op, _ in insts:
-        if lo <= addr <= hi:
-            counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
-    return counts
+    bodies = []
+    for lo, hi in sorted(set(loops), key=lambda t: t[0] - t[1]):
+        counts = {}
+        for addr, op, _ in insts:
+            if lo <= addr <= hi:
+                counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
+        bodies.append(counts)
+    return bodies
 
 
 def _points(curve, seed: int, B: int, dev):
@@ -704,20 +714,23 @@ def main() -> int:
           f"{[row_name(n, t) for t, n in probe_targets]} for the probes")
     for (cname, name), rep in reports.items():
         print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
-    print("the 32-bit layer's kernels: ptxas, and the loop body in SASS against "
+    print("the 32-bit layer's kernels: ptxas, and the loop bodies in SASS against "
           "the fe32 count")
+    for c in curves:
+        model = kfe.fe32_counts(c)
+        print(f"  fe32 count, {c.name}: " + ", ".join(
+            f"{f} {model[f]}" for f in ("padd", "padd_mixed", "pdouble", "select_point",
+                                        "select_affine", "cneg", "load", "store")))
     for c, name in [(c, n) for c in curves for n in K.FE32_KERNELS
                     if (c, n) in targets]:
         so = K._target(name, c)[0]
         with open(f"{so}.log") as fh:
             regs, stack = ptxas_report(fh.read())
         print(f"  {row_name(name, c)}: {regs}; {stack}")
-        if "0 bytes spill stores, 0 bytes spill loads" not in stack:
+        if not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
+                            for ln in stack.split(" | ")):
             raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
-        model = kfe.fe32_counts(c)
-        print(f"    SASS loop body by class: {sass_loop_counts(so, name)}; fe32 count: "
-              f"padd {model['padd']}, load a coordinate {model['load']}, store "
-              f"{model['store']}")
+        print(f"    SASS loop bodies by class, largest first: {sass_loop_counts(so, name)}")
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
@@ -727,14 +740,16 @@ def main() -> int:
     rows = {}
 
     def hold(name, label, kern, plain, reps, B=None, c=curve, library=None,
-             compare=limb_diff, **work):
+             compare=limb_diff, block=None, **work):
         """kern() against plain() (a tensor or a tuple of them) by compare
         (the largest limb difference, by default of the raw limbs), then
         kern's ms over `reps` runs and its bound, the least over K.designs
         of K.work (B: the lanes, by default the output's last axis) for
         target c (default secp256k1, whose rows are named by the kernel
         alone; a field spec; None), and the ms of library(), one PyTorch
-        call that computes the same function, where there is one."""
+        call that computes the same function, where there is one. With
+        `block` (the lanes a block, one thread a lane), prints the warps
+        a scheduler of the card."""
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -769,6 +784,10 @@ def main() -> int:
             extra += (f" (CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
                       f"{1e3 * ops['int8'] / INT8_OPS_PER_S:.4f} ms)")
         same = "limb-equal" if compare is limb_diff else "equal mod p by canonical coordinates"
+        if block is not None:
+            lanes = outs_k[0].shape[-1] if B is None else B
+            warps = -(-lanes // block) * -(-block // 32)
+            extra += f"; {warps} warps, {warps / (4 * SMS):.3f} a scheduler"
         print(f"  {key} [{label}]: {same} to its twin; kernel {ms:.3f} ms, "
               f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by}){extra}")
         row = rows.setdefault(key, {"max_abs_err": 0})
@@ -783,7 +802,7 @@ def main() -> int:
     hold("padd_chain", "B=8192 repeat=16",
          lambda: K.padd_chain(curve, a_l, b_l, 16),
          lambda: K.padd_chain_plain(curve, a_l, b_l, 16), 20, compare=coord_diff(curve),
-         repeat=16)
+         block=32, repeat=16)
 
     rng = np.random.default_rng(3)
     for spec, field in ((curve.scalar, 1), (curve.field, 0)):
@@ -803,19 +822,32 @@ def main() -> int:
     hold("ladder", "glv T=2 B=4096",
          lambda: K.ladder(curve, bases, mag, neg, glv=True),
          lambda: K.ladder_plain(curve, bases, mag, neg, glv=True), 3,
-         T=2, nw=mag.shape[0], glv=True)
+         compare=coord_diff(curve), block=K.ladder_lanes(2), T=2, nw=mag.shape[0], glv=True)
     bases1, mag1, neg1 = SM.ladder_inputs([(Q, ks[0])], scalar_bits=256)
     hold("ladder", "T=1 B=4096",
          lambda: K.ladder(curve, bases1, mag1, neg1),
          lambda: K.ladder_plain(curve, bases1, mag1, neg1), 3,
-         T=1, nw=mag1.shape[0], glv=False)
+         compare=coord_diff(curve), block=K.ladder_lanes(1), T=1, nw=mag1.shape[0],
+         glv=False)
+    # the Straus MSM's shape: msm() at 4096 points runs 8 terms on 512 lanes
+    sl = M._pick_lanes(STRAUS_POINTS, 8)
+    bases8, mag8, neg8 = SM.ladder_inputs(
+        [(P.point_from_limbs(curve, _points(curve, 20 + t, sl, dev)[0]),
+          SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big") for _ in range(sl)], dev))
+         for t in range(8)], glv=True)
+    hold("ladder", f"Straus glv T=8 B={sl}",
+         lambda: K.ladder(curve, bases8, mag8, neg8, glv=True),
+         lambda: K.ladder_plain(curve, bases8, mag8, neg8, glv=True), 3,
+         compare=coord_diff(curve), block=K.ladder_lanes(8), T=8, nw=mag8.shape[0], glv=True)
+    del bases8, mag8, neg8
     kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
     mag_g, neg_g = SM.signed_digits(curve, SM.pack_scalars(curve, kg, dev))
     mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
     tbl_g = SM._gen_table(curve, dev)
     hold("genmul", f"nw={mag_g.shape[0]} B=4096",
          lambda: K.genmul(curve, tbl_g, mag_g, neg_g),
-         lambda: K.genmul_plain(curve, tbl_g, mag_g, neg_g), 10, nw=mag_g.shape[0])
+         lambda: K.genmul_plain(curve, tbl_g, mag_g, neg_g), 10,
+         compare=coord_diff(curve), block=K.GENMUL_LANES, nw=mag_g.shape[0])
     for c in curves:
         pa_l, _ = _points(c, 11, 8192, dev)
         pb_l, _ = _points(c, 12, 8192, dev)
@@ -830,7 +862,7 @@ def main() -> int:
     hold("padd_chain", "p256 B=8192 repeat=16",
          lambda: K.padd_chain(p256, pa_l, pb_l, 16),
          lambda: K.padd_chain_plain(p256, pa_l, pb_l, 16), 20, c=p256,
-         compare=coord_diff(p256), repeat=16)
+         compare=coord_diff(p256), block=32, repeat=16)
     for spec, field in ((p256.scalar, 1), (p256.field, 0)):
         xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(4096)]
         x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
@@ -845,8 +877,8 @@ def main() -> int:
                                         (P.point_from_limbs(p256, Qs), ks[1])])
     hold("ladder", f"p256 T=2 nw={mag.shape[0]} B=4096",
          lambda: K.ladder(p256, bases, mag, neg),
-         lambda: K.ladder_plain(p256, bases, mag, neg), 3,
-         c=p256, T=2, nw=mag.shape[0], glv=False)
+         lambda: K.ladder_plain(p256, bases, mag, neg), 3, c=p256,
+         compare=coord_diff(p256), block=K.ladder_lanes(2), T=2, nw=mag.shape[0], glv=False)
     kg = [0, p256.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
     mag_g, neg_g = SM.signed_digits(p256, SM.pack_scalars(p256, kg, dev))
     mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
@@ -854,7 +886,7 @@ def main() -> int:
     hold("genmul", f"p256 nw={mag_g.shape[0]} B=4096",
          lambda: K.genmul(p256, tbl_g, mag_g, neg_g),
          lambda: K.genmul_plain(p256, tbl_g, mag_g, neg_g), 10, c=p256,
-         nw=mag_g.shape[0])
+         compare=coord_diff(p256), block=K.GENMUL_LANES, nw=mag_g.shape[0])
     del bases, mag, neg, tbl_g, mag_g, neg_g
     torch.cuda.synchronize()
 
@@ -897,7 +929,7 @@ def main() -> int:
     hold("segscan", f"signed C={C} lanes={per}x{MSM_LANES}",
          lambda: K.segscan(curve, key2, val2, nbuck, neg2),
          lambda: K.segscan_plain(curve, key2, val2, nbuck, neg2), 3, B=lanes,
-         compare=segscan_diff(curve, key2), C=C, adds=seg_adds, ends=seg_ends,
+         compare=segscan_diff(curve, key2), block=128, C=C, adds=seg_adds, ends=seg_ends,
          signed=True)
     hold("segscan", f"unsigned C=16 lanes={per}x{MSM_LANES}",
          lambda: K.segscan(curve, key2[:16], val2[:16], nbuck),

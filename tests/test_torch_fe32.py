@@ -1,19 +1,23 @@
 """The 32-bit field layer (tpu_ecc_torch/csrc/fe32.cuh, point32.cuh) and the
-per-lane bodies of the two kernels that run on it, `padd_chain` and
-`segscan`, built with g++ into one host harness per curve (secp256k1: a = 0,
-solinas fold; P-256: a = -3, Montgomery CIOS with the domain maps to and
-from the 13-bit plan's R).
+per-lane bodies of the four kernels that run on it, `padd_chain`,
+`segscan`, `ladder` and `genmul`, built with g++ into one host harness per
+curve (secp256k1: a = 0, solinas fold, GLV beta; P-256: a = -3, Montgomery
+CIOS with the domain maps to and from the 13-bit plan's R).
 
 Inputs are made from a numpy seed (and the host oracle's points). Tolerance:
 exact. The field operations and both boundary converters equal Python ints;
-the point add equals, coordinate by coordinate mod p, tpu_ecc.ops.points'
-add (one jitted program per curve) and the port's `kernels.padd_plain`; the
-chain body equals `padd_chain_plain` and the segscan body `segscan_plain`
-mod p, at the run-end rows that the kernel writes. Every value the harness
-returns is canonical.
+the add, the mixed add and the doubling equal, coordinate by coordinate mod
+p, tpu_ecc.ops.points' formulas (one jitted program per curve and formula),
+the port's plain ones and the host oracle; the chain body equals
+`padd_chain_plain`, the segscan body `segscan_plain` mod p at the run-end
+rows that the kernel writes, the ladder body `ladder_plain` (its tables in a
+buffer shared by blocks of lanes, as the kernel's shared memory) and the
+genmul body (the comb converted by its prologue) `genmul_plain`. Every value
+the harness returns is canonical.
 
-Budget: 60 s for the file at one process (two g++ builds of a few seconds
-and two small XLA:CPU programs).
+Budget: 100 s for the file at one process (about 55 s: two g++ builds at
+-O0 of about 2 s each, and six small XLA:CPU programs, which take most of
+it).
 """
 
 import functools
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from tpu_ecc.curves.specs import get_curve as j_curve
+from tpu_ecc.ops import fe as JF
 from tpu_ecc.ops import points as JP
 from tpu_ecc_torch.curves.specs import get_curve
 from tpu_ecc_torch.ops import fe as F
@@ -90,6 +95,39 @@ int main(int argc, char** argv) {
     wr(scanned), wr(last), wr(tail), wr(lead);
     return 0;
   }
+  if (!strcmp(m, "double") || !strcmp(m, "mixed")) {  // a [3, NL, B] (x, y [2, NL, B])
+    V a = rd(PN * n), xy = rd(!strcmp(m, "mixed") ? 2 * NL * n : 0), out(PN * n);
+    for (size_t l = 0; l < n; ++l) {
+      const Pt<C> p = load_point<C>(&a[l], (uint32_t)n);
+      store_point<C>(xy.empty() ? pdouble<C>(p)
+                                : padd_mixed<C>(p, from_limbs<C>(&xy[l], (uint32_t)n),
+                                                from_limbs<C>(&xy[NL * n + l], (uint32_t)n)),
+                     &out[l], (uint32_t)n);
+    }
+    wr(out);
+    return 0;
+  }
+  if (!strcmp(m, "ladder")) {  // ladder B T H nw glv TL: blocks of TL lanes share a table
+    const int T = atoi(argv[3]), H = atoi(argv[4]), nw = atoi(argv[5]), glv = atoi(argv[6]);
+    const size_t TL = (size_t)atoi(argv[7]);
+    V bases = rd(T * PN * n), mag = rd(nw * H * n), neg = rd(nw * H * n), out(PN * n);
+    V tbl(T * TBL * 3 * N * TL, 0xFFFFFFFFu);
+    for (size_t l = 0; l < n; ++l)
+      ladder_lane<C>(bases.data(), mag.data(), neg.data(), out.data(), &tbl[l % TL],
+                     (uint32_t)TL, T, H, nw, glv != 0, (int)n, (int)l);
+    wr(out);
+    return 0;
+  }
+  if (!strcmp(m, "genmul")) {  // genmul B nw threads: the prologue by `threads` threads
+    const int nw = atoi(argv[3]), threads = atoi(argv[4]), coords = nw * TBL * 2;
+    V tbl = rd(coords * NL), mag = rd(nw * n), neg = rd(nw * n), out(PN * n);
+    V ctab(coords * N, 0xFFFFFFFFu);
+    for (int t = 0; t < threads; ++t) genmul_table<C>(tbl.data(), ctab.data(), coords, t, threads);
+    for (size_t l = 0; l < n; ++l)
+      genmul_lane<C>(ctab.data(), mag.data(), neg.data(), out.data(), nw, (int)n, (int)l);
+    wr(out);
+    return 0;
+  }
   if (!strcmp(m, "load")) {  // NL limbs a lane -> N words
     V in = rd(NL * n), out(N * n);
     for (size_t l = 0; l < n; ++l) put(out, l, from_limbs<C>(&in[l * NL], 1));
@@ -114,6 +152,7 @@ int main(int argc, char** argv) {
     else if (!strcmp(m, "sqr")) r = sqr<C>(a);
     else if (!strcmp(m, "mul_b")) r = mul_b<C>(a);
     else if (!strcmp(m, "mul_small")) r = mul_small<C>(a, (uint32_t)atoi(argv[3]));
+    else if (!strcmp(m, "mul_beta")) r = mul_beta<C>(a);
     else return 3;
     put(out, l, r);
   }
@@ -137,7 +176,7 @@ def harness(tmp_path_factory):
             (d / "kfe_fe32.cuh").write_text(kfe.fe32_header(get_curve(cname)))
             (d / "harness.cpp").write_text(_HARNESS)
             exe = d / "harness"
-            subprocess.run([gxx, "-O1", "-std=c++17", "-I", str(d), "-I", kernels.CSRC,
+            subprocess.run([gxx, "-O0", "-std=c++17", "-I", str(d), "-I", kernels.CSRC,
                             "-o", str(exe), str(d / "harness.cpp")],
                            check=True, capture_output=True)
             built[cname] = exe
@@ -205,7 +244,8 @@ def _canonical_inputs(p, rng, count=B):
 
 
 @pytest.mark.parametrize("cname", CURVES)
-@pytest.mark.parametrize("op", ["add", "sub", "neg", "mul", "sqr", "mul_b", "mul_small"])
+@pytest.mark.parametrize("op", ["add", "sub", "neg", "mul", "sqr", "mul_b", "mul_small",
+                                "mul_beta"])
 def test_field_op_equals_ints(harness, cname, op):
     curve = get_curve(cname)
     p, N = curve.p, kfe.FE32_N
@@ -214,10 +254,12 @@ def test_field_op_equals_ints(harness, cname, op):
     a = _canonical_inputs(p, rng)
     b = _canonical_inputs(p, rng)[::-1]
     b_plain = (3 * curve.b if curve.strategy == "a0" else curve.b) % p
+    beta = curve.glv["beta"] if curve.glv else 0     # no endomorphism: beta is 0
     inv = pow(r32, -1, p)
     want = {"add": lambda x, y: x + y, "sub": lambda x, y: x - y, "neg": lambda x, y: -x,
             "mul": lambda x, y: x * y * inv, "sqr": lambda x, y: x * x * inv,
-            "mul_b": lambda x, y: b_plain * x, "mul_small": lambda x, y: 21 * x}[op]
+            "mul_b": lambda x, y: b_plain * x, "mul_small": lambda x, y: 21 * x,
+            "mul_beta": lambda x, y: beta * x}[op]
     arrays = [_to_words(a, N)] + ([_to_words(b, N)] if op in ("add", "sub", "mul") else [])
     args = (21,) if op == "mul_small" else ()
     got = _from_words(harness(cname)(op, B, *args, arrays=arrays).reshape(B, N))
@@ -346,6 +388,149 @@ def test_chain_body_equals_plain(harness, cname):
 
 
 # ---------------------------------------------------------------------------
+# the doubling and the mixed add
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_point_op(cname, op):
+    jc = j_curve(cname)
+    f = jc.field
+    if op == "double":
+        return jax.jit(lambda a: JP.point_limbs(JP.pdouble(JP.point_from_limbs(jc, a))))
+    return jax.jit(lambda a, xy: JP.point_limbs(JP.padd_mixed(
+        JP.point_from_limbs(jc, a), JF.fe_steady(f, xy[0]), JF.fe_steady(f, xy[1]))))
+
+
+def _affine_of(curve, limbs):
+    """Steady point limbs [3, n, B] -> [(x, y) or None for O]."""
+    x, y, inf = P.to_affine(P.point_from_limbs(curve, torch.from_numpy(limbs.astype(np.int64))))
+    return [None if i else (xv, yv) for xv, yv, i in
+            zip(F.fe_to_ints(x), F.fe_to_ints(y), inf.tolist())]
+
+
+def _affine_limbs(curve, pts, rng):
+    """Steady limbs uint32 [2, n, B] of affine points (x, y) in the field's
+    encoding, each plus a random multiple of p that stays steady."""
+    f = curve.field
+    top = _steady_top(f)
+    coords = [[], []]
+    for pt in pts:
+        for c, v in zip(coords, pt):
+            v = f.encode_int(v)
+            c.append(v + int(rng.integers(0, (top - v) // f.p + 1)) * f.p)
+    return np.stack([ints_to_limbs_np(c, f.n_limbs, f.limb_bits) for c in coords], 0)
+
+
+@pytest.mark.parametrize("cname", CURVES)
+def test_point_double_equals_reference(harness, cname):
+    """One doubling (RCB Algorithm 9 or 6) on O and random points, each
+    coordinate equal mod p to tpu_ecc's pdouble and to kernels.pdouble_plain,
+    canonical, and 2P by the host oracle. Neither curve has a point of
+    order 2 (both have prime order), so none is among the inputs."""
+    curve = get_curve(cname)
+    rng = np.random.default_rng(7)
+    pts, _ = _affine_pairs(curve)
+    a = _steady_limbs(curve, pts, rng)
+    got = harness(cname)("double", B, arrays=[a]).reshape(a.shape)
+    _canonical(curve, got, 1)
+    ref = np.asarray(_jax_point_op(cname, "double")(jnp.asarray(a)))
+    plain = kernels.pdouble_plain(curve, torch.from_numpy(a.astype(np.int64))).numpy()
+    mine = _mod_p(curve, got, 1)
+    assert (mine == _mod_p(curve, ref, 1)).all()
+    assert (mine == _mod_p(curve, plain, 1)).all()
+    assert _affine_of(curve, got) == [H.aff_add(curve, u, u) for u in pts]
+
+
+@pytest.mark.parametrize("cname", CURVES)
+def test_mixed_add_equals_reference(harness, cname):
+    """One mixed add (RCB Algorithm 8 or 5) of a projective point and an
+    affine one: O + G, P + P, P + (-P) and random pairs, each coordinate
+    equal mod p to tpu_ecc's padd_mixed and to the port's, canonical, and
+    the sum by the host oracle."""
+    curve = get_curve(cname)
+    f = curve.field
+    rng = np.random.default_rng(8)
+    a_aff, b_aff = _affine_pairs(curve)
+    G = H.aff_generator(curve)
+    b_aff = [G if q is None else q for q in b_aff]          # Q is never O
+    a, xy = _steady_limbs(curve, a_aff, rng), _affine_limbs(curve, b_aff, rng)
+    got = harness(cname)("mixed", B, arrays=[a, xy]).reshape(a.shape)
+    _canonical(curve, got, 1)
+    ref = np.asarray(_jax_point_op(cname, "mixed")(jnp.asarray(a), jnp.asarray(xy)))
+    xy64 = torch.from_numpy(xy.astype(np.int64))
+    plain = P.point_limbs(P.padd_mixed(P.point_from_limbs(curve, torch.from_numpy(
+        a.astype(np.int64))), F.fe_steady(f, xy64[0]), F.fe_steady(f, xy64[1]))).numpy()
+    mine = _mod_p(curve, got, 1)
+    assert (mine == _mod_p(curve, ref, 1)).all()
+    assert (mine == _mod_p(curve, plain, 1)).all()
+    want = [H.aff_add(curve, u, v) for u, v in zip(a_aff, b_aff)]
+    assert want[0] == G and b_aff[3] == a_aff[3] and want[4] is None   # O + G, P + P, P - P
+    assert _affine_of(curve, got) == want
+
+
+# ---------------------------------------------------------------------------
+# the ladder and genmul bodies
+# ---------------------------------------------------------------------------
+
+LADDER_CASES = [("secp256k1", 2, True), ("secp256k1", 1, False), ("p256", 2, False)]
+
+
+@pytest.mark.parametrize("cname,T,glv", LADDER_CASES, ids=["k256-glv-T2", "k256-T1", "p256-T2"])
+def test_ladder_body_equals_plain(harness, cname, T, glv):
+    """ladder_lane on scalarmul.ladder_inputs' rows (6 windows: GLV's last
+    6 of 34, else 24-bit scalars), in blocks of 4 lanes sharing a table
+    buffer as the kernel's shared memory, against kernels.ladder_plain mod
+    p. Lane 0's scalars are 0 (an all-zero digit column), lane 1's 1; T = 1
+    has H == 1, whose first window seeds the sum."""
+    curve = get_curve(cname)
+    rng = np.random.default_rng(9 + T)
+    G = H.aff_generator(curve)
+    bases, ks = [], []
+    for t in range(T):
+        pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, B)]
+        bases.append(P.from_affine_ints(curve, [q[0] for q in pts], [q[1] for q in pts], "cpu"))
+        top = curve.n if glv else 1 << 24
+        ks.append(SM.pack_scalars(curve, [0, 1] + [int.from_bytes(rng.bytes(32), "big") % top
+                                                   for _ in range(B - 2)], "cpu"))
+    b, mag, neg = SM.ladder_inputs(list(zip(bases, ks)), glv=glv,
+                                   scalar_bits=None if glv else 24)
+    mag, neg = mag[-6:], neg[-6:]
+    assert (mag[:, :, 0] == 0).all()
+    nw, Hn = mag.shape[0], mag.shape[1]
+    got = harness(cname)("ladder", B, T, Hn, nw, int(glv), 4,
+                         arrays=[b.numpy(), mag.numpy(), neg.to(torch.int64).numpy()])
+    got = got.reshape(3, curve.field.n_limbs, B)
+    _canonical(curve, got, 1)
+    want = kernels.ladder_plain(curve, b, mag, neg, glv).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want, 1)).all()
+    assert _affine_of(curve, got)[0] is None
+
+
+@pytest.mark.parametrize("cname", CURVES)
+def test_genmul_body_equals_plain(harness, cname):
+    """genmul_table (the prologue, by 5 threads) and genmul_lane on
+    scalarmul._gen_table's rows and signed_digits' 65 windows, k = 0, 1,
+    n - 1 and random, against kernels.genmul_plain mod p, and k G by the
+    host oracle."""
+    curve = get_curve(cname)
+    rng = np.random.default_rng(10)
+    ks = [0, 1, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") % curve.n
+                                for _ in range(B - 3)]
+    mag, neg = SM.signed_digits(curve, SM.pack_scalars(curve, ks, "cpu"))
+    mag, neg = mag.flip(0), neg.flip(0)                      # LSB window first
+    tbl = SM._gen_table(curve, torch.device("cpu"))
+    nw = mag.shape[0]
+    got = harness(cname)("genmul", B, nw, 5,
+                         arrays=[tbl.numpy(), mag.numpy(), neg.to(torch.int64).numpy()])
+    got = got.reshape(3, curve.field.n_limbs, B)
+    _canonical(curve, got, 1)
+    want = kernels.genmul_plain(curve, tbl, mag, neg).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want, 1)).all()
+    G = H.aff_generator(curve)
+    assert _affine_of(curve, got) == [H.aff_mul(curve, k, G) for k in ks]
+
+
+# ---------------------------------------------------------------------------
 # the segscan body
 # ---------------------------------------------------------------------------
 
@@ -412,10 +597,11 @@ def test_segscan_body_equals_plain(harness, signed):
 # ---------------------------------------------------------------------------
 
 def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
-    """The two kernels on the layer include fe32.cuh and point32.cuh, and a
+    """The four kernels on the layer include fe32.cuh and point32.cuh, and a
     change to an included header changes the library's build key."""
-    assert kernels.includes("padd_chain.cu") == ["fe32.cuh", "point32.cuh"]
-    assert kernels.includes("segscan.cu") == ["fe32.cuh", "point32.cuh"]
+    for name in kernels.FE32_KERNELS:
+        assert kernels.includes(kernels.KERNELS[name][0]) == ["fe32.cuh", "point32.cuh"]
+        assert kernels.functions(name, get_curve("secp256k1")) == ()
     assert kernels.includes("padd.cu") == []
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
@@ -430,37 +616,68 @@ def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("cname", CURVES)
 def test_fe32_counts_and_constants(cname):
-    """The 32-bit design counts fewer instructions an add than the 13-bit
-    one (kernels.work's two designs); the header's constants are the
-    curve's, and the domain maps compose to the identity."""
+    """The 32-bit design counts fewer instructions than the 13-bit one
+    (kernels.work's two designs) for each kernel on the layer; the header's
+    constants are the curve's, beta among them where the curve has an
+    endomorphism, and the domain maps compose to the identity."""
     curve = get_curve(cname)
     k = kfe.fe32_constants(curve)
     p = curve.p
+    r32, r13 = _domain(curve)
     assert sum(w << (32 * i) for i, w in enumerate(k["p"])) == p
+    beta = sum(w << (32 * i) for i, w in enumerate(k["beta"]))
+    assert k["HAS_BETA"] == bool(curve.glv)
+    assert beta == (curve.glv["beta"] * r32 % p if curve.glv else 0)
+    assert f"HAS_BETA = {str(bool(curve.glv)).lower()}" in kfe.fe32_header(curve)
     if k["MONT"]:
-        r32, r13 = _domain(curve)
         to32 = sum(w << (32 * i) for i, w in enumerate(k["to32"]))
         to13 = sum(w << (32 * i) for i, w in enumerate(k["to13"]))
         inv = pow(r32, -1, p)
         assert to32 * inv * to13 * inv % p == 1     # store(load(v)) = v
         assert k["N0"] * p % (1 << 32) == (1 << 32) - 1
-    ops = {d: kernels.work("padd_chain", curve, 64, design=d, repeat=16)[0]
-           for d in kernels.designs("padd_chain")}
-    assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values())
+    shapes = {"padd_chain": dict(repeat=16), "ladder": dict(T=2, nw=34, glv=bool(curve.glv)),
+              "genmul": dict(nw=65),
+              "segscan": dict(C=64, adds=2000, ends=500, signed=True)}
+    assert set(shapes) == set(kernels.FE32_KERNELS)
+    for name, kw in shapes.items():
+        ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]
+               for d in kernels.designs(name)}
+        assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values()), name
+    c = kfe.fe32_counts(curve)
+    assert sum(c["pdouble"].values()) < sum(c["padd_mixed"].values()) < sum(c["padd"].values())
+    assert c["mul_beta"] == c["mul"]
     with pytest.raises(NotImplementedError):
         kfe.fe32_constants(get_curve("bp256r1"))
 
 
 def test_padd_count_follows_point32(tmp_path, monkeypatch):
-    """The add's field operations in the fe32 count are read from
-    point32.cuh: RCB's 12 multiplies and 2 by b in both formulas, and an
-    edit of the header moves the count."""
-    assert kfe.padd_fe32_ops("a0") == {"mul": 12, "mul_b": 2, "add": 14, "sub": 5}
-    assert kfe.padd_fe32_ops("a_minus3") == {"mul": 12, "mul_b": 2, "add": 20, "sub": 9}
+    """The point formulas' field operations in the fe32 count are read from
+    point32.cuh: RCB's 12 multiplies and 2 by b in both adds, 11 and 2 in
+    both mixed adds, 8 and 1 (a = 0) or 11 and 2 (a = -3) in the
+    doublings, and an edit of the header moves the count."""
+    ops = kfe.fe32_point_ops
+    assert ops("padd", "a0") == {"mul": 12, "mul_b": 2, "add": 14, "sub": 5}
+    assert ops("padd", "a_minus3") == {"mul": 12, "mul_b": 2, "add": 20, "sub": 9}
+    assert ops("padd_mixed", "a0") == {"mul": 11, "mul_b": 2, "add": 10, "sub": 3}
+    assert ops("padd_mixed", "a_minus3") == {"mul": 11, "mul_b": 2, "add": 16, "sub": 7}
+    assert ops("pdouble", "a0") == {"mul": 8, "mul_b": 1, "add": 8, "sub": 1}
+    assert ops("pdouble", "a_minus3") == {"mul": 11, "mul_b": 2, "add": 15, "sub": 6}
     text = pathlib.Path(kfe._POINT32).read_text()
     edited = tmp_path / "point32.cuh"
     edited.write_text(text.replace("  X3 = sub<C>(t2, X3);\n",
                                    "  X3 = sub<C>(t2, mul<C>(X3, X3));\n", 1))
     monkeypatch.setattr(kfe, "_POINT32", str(edited))
-    assert kfe.padd_fe32_ops("a0") == {"mul": 13, "mul_b": 2, "add": 14, "sub": 5}
-    assert kfe.padd_fe32_ops("a_minus3")["mul"] == 12
+    assert ops("padd", "a0") == {"mul": 13, "mul_b": 2, "add": 14, "sub": 5}
+    assert ops("padd", "a_minus3")["mul"] == 12
+    assert ops("padd_mixed", "a0")["mul"] == 11
+
+
+def test_ladder_lanes_follow_shared_memory():
+    """A block of the ladder takes 32 lanes up to T = 8 (the Straus MSM's
+    221 KB), fewer above, and a T whose one-lane tables (864 B a base)
+    exceed a block's 227 KB raises."""
+    assert kernels.ladder_lanes(1) == kernels.ladder_lanes(8) == 32
+    assert kernels.ladder_lanes(9) == kernels.SMEM_BLOCK // (9 * 864) == 29
+    assert kernels.ladder_lanes(269) == 1
+    with pytest.raises(ValueError):
+        kernels.ladder_lanes(270)

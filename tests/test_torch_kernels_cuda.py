@@ -1,10 +1,10 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
 Each kernel must equal its twin limb for limb (tolerance: exact), except
-the two on the 32-bit field layer (padd_chain, segscan), which store
-canonical values: each projective coordinate must equal the twin's mod p
-(exact, by canonical limbs), segscan's `scanned` at its run-end rows, the
-only rows it writes. These tests
+the four on the 32-bit field layer (padd_chain, segscan, ladder, genmul),
+which store canonical values: each projective coordinate must equal the
+twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
+run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
 with
 
@@ -121,23 +121,58 @@ def test_pow_matches_plain(dev, name, field):
     assert F.fe_to_ints(F.fe_steady(spec, out)) == [pow(v, -1, spec.p) for v in xs]
 
 
+def _same_mod_p(curve, out, want):
+    """The kernel's limbs canonical and each coordinate equal to want's mod p."""
+    assert torch.equal(_canonical(curve, out), out.to(torch.int64))
+    assert torch.equal(_canonical(curve, out), _canonical(curve, want))
+
+
+def _random_ladder(curve, T, H, nw, b, dev, seed):
+    bases = torch.stack([_points(curve, seed + t, b, dev) for t in range(T)], 0)
+    rng = np.random.default_rng(seed)
+    mag = torch.from_numpy(rng.integers(0, 9, (nw, H, b))).to(dev)
+    neg = torch.from_numpy(rng.integers(0, 2, (nw, H, b)).astype(bool)).to(dev)
+    return bases, mag, neg
+
+
 @pytest.mark.parametrize("glv", [True, False])
 def test_ladder_matches_plain(dev, k256, glv):
+    """Equal mod p by canonical coordinates (the 32-bit layer): GLV with
+    T = 2 and H = 1 (the first window seeds the sum)."""
     T = 2 if glv else 1
-    H = 2 * T if glv else T
-    nw = 5
-    bases = torch.stack([_points(k256, 10 + t, B, dev) for t in range(T)], 0)
-    rng = np.random.default_rng(4)
-    mag = torch.from_numpy(rng.integers(0, 9, (nw, H, B))).to(dev)
-    neg = torch.from_numpy(rng.integers(0, 2, (nw, H, B)).astype(bool)).to(dev)
+    bases, mag, neg = _random_ladder(k256, T, 2 * T if glv else T, 5, B, dev, 10)
     out = kernels.ladder(k256, bases, mag, neg, glv=glv)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.ladder_plain(k256, bases, mag, neg, glv=glv))
+    _same_mod_p(k256, out, kernels.ladder_plain(k256, bases, mag, neg, glv=glv))
+
+
+@pytest.mark.parametrize("T", [8, 9])
+def test_ladder_straus_shape_matches_plain(dev, k256, T):
+    """T = 8 with GLV, the largest table the port launches (the Straus MSM's
+    terms; 221 KB of shared memory a block of 32 lanes), and T = 9 (29
+    lanes a block, the kernel's other instance), on 3 windows."""
+    bases, mag, neg = _random_ladder(k256, T, 2 * T, 3, B, dev, 30)
+    out = kernels.ladder(k256, bases, mag, neg, glv=True)
+    torch.cuda.synchronize()
+    _same_mod_p(k256, out, kernels.ladder_plain(k256, bases, mag, neg, glv=True))
+
+
+def test_ladder_refuses_tables_beyond_shared_memory(dev, k256):
+    """A T whose one-lane tables (864 B a base) exceed a block's shared
+    memory raises before any launch."""
+    T = kernels.SMEM_BLOCK // 864 + 1
+    _, mag, neg = _random_ladder(k256, 1, T, 1, 2, dev, 40)
+    bases = _points(k256, 40, 2, dev).expand(T, -1, -1, -1).contiguous()
+    before = kernels.launches["ladder"]
+    with pytest.raises(ValueError):
+        kernels.ladder(k256, bases, mag, neg)
+    assert kernels.launches["ladder"] == before
 
 
 def test_ladder_without_glv_matches_plain(dev):
     """P-256 (no endomorphism): the verify's two-term ladder, T = 2 on 65
-    windows as ladder_inputs makes them; a glv launch is refused."""
+    windows as ladder_inputs makes them, equal mod p by canonical
+    coordinates; a glv launch is refused."""
     p256 = get_curve("p256")
     from tpu_ecc_torch.ops import scalarmul as SM
 
@@ -149,7 +184,7 @@ def test_ladder_without_glv_matches_plain(dev):
     assert mag.shape == (65, 2, B)
     out = kernels.ladder(p256, bases, mag, neg)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.ladder_plain(p256, bases, mag, neg))
+    _same_mod_p(p256, out, kernels.ladder_plain(p256, bases, mag, neg))
     with pytest.raises(ValueError):
         kernels.ladder(p256, bases, mag, neg, glv=True)
 
@@ -157,6 +192,7 @@ def test_ladder_without_glv_matches_plain(dev):
 @pytest.mark.parametrize("name", CURVES)
 @pytest.mark.parametrize("b", [256, 4096])
 def test_genmul_matches_plain(dev, name, b):
+    """Equal mod p by canonical coordinates (the 32-bit layer)."""
     curve = get_curve(name)
     from tpu_ecc_torch.ops import scalarmul as SM
 
@@ -167,7 +203,7 @@ def test_genmul_matches_plain(dev, name, b):
     mag, neg = mag.flip(0), neg.flip(0)
     out = kernels.genmul(curve, tbl, mag, neg)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.genmul_plain(curve, tbl, mag, neg))
+    _same_mod_p(curve, out, kernels.genmul_plain(curve, tbl, mag, neg))
 
 
 def _window_group(curve, dev, N, L, w, signed, windows):

@@ -130,18 +130,19 @@ def test_formulas_not_ported_raise():
 
 
 def test_ladder_functions_follow_the_endomorphism():
-    """The ladder takes beta * x (and its header defines KFE_HAS_BETA) only
-    for a curve with an endomorphism; every kernel's header generates for
-    P-256, which has none."""
+    """The ladder takes beta * x (its header, on the 32-bit layer, sets
+    HAS_BETA and the constant beta) only for a curve with an endomorphism;
+    every kernel's header generates for P-256, which has none."""
     k256, p256 = get_curve("secp256k1"), get_curve("p256")
-    assert "fp_mul_beta" in kernels.functions("ladder", k256)
-    assert "fp_mul_beta" not in kernels.functions("ladder", p256)
+    assert "ladder" in kernels.FE32_KERNELS
+    assert "static constexpr bool HAS_BETA = true;" in kernels._header("ladder", k256)
+    assert "static constexpr bool HAS_BETA = false;" in kernels._header("ladder", p256)
     assert "fp_mul_beta" not in kfe.function_table(p256)
-    header, counts = kfe.kernel_header(p256, kernels.functions("ladder", p256))
-    assert "KFE_HAS_BETA" not in header and set(counts) == {"padd", "pdouble", "fp_neg"}
-    assert "#define KFE_HAS_BETA 1" in kfe.kernel_header(
-        k256, kernels.functions("ladder", k256))[0]
+    assert "fp_mul_beta" in kfe.function_table(k256)
     for name in kernels.KERNELS:
+        if name in kernels.FE32_KERNELS:
+            assert "struct Curve32" in kernels._header(name, p256)
+            continue
         header, counts = kfe.kernel_header(p256, kernels.functions(name, p256))
         assert "#define KFE_FP_N 21" in header and all(sum(c.values()) > 0
                                                        for c in counts.values())

@@ -1,135 +1,119 @@
 // ladder: the signed-digit Straus ladder sum_h d_h * P_h — the verify
 // lincomb u1*G + u2*Q (glv = 1: four 132-bit half-scalar terms on two shared
-// tables) and scalar_mul's single-term ladder (glv = 0, H = 1).
+// tables), scalar_mul's single-term ladder (glv = 0, H = 1) and the Straus
+// MSM (T = 8 with GLV).
 //
 // Replaces tpu_ecc/ops/pallas_kernels.py ladder_call (:887-1044).
 //
-// Design: one thread per batch lane; the TPU's sequential window grid
-// dimension, which carried the accumulator in VMEM scratch, becomes the
-// window loop inside the thread. Per base the lane builds the table
-// [O, Q, .., 8Q] with 7 adds into global scratch [T * 9, 3, n, B]
-// (2160 B per base per lane; 17.7 MB at T = 2, B = 4096, which L2 holds).
-// Per window: 4 doublings, then per term a masked select over all 9 table
-// entries (never an index by digit: scalar_mul serves secret scalars),
-// beta * X for the odd GLV terms after the select (:991-992), a masked
-// y-negation, and an add. With H == 1 the first window seeds the
-// accumulator from the selected entry instead of adding it to O (:999-1007),
-// for limb parity with the plain ladder. The GLV branch is compiled only
-// where the generated header defines KFE_HAS_BETA (a curve with an
-// endomorphism, such as secp256k1); elsewhere (P-256) a glv launch is
-// refused before it starts.
+// Design: one thread per batch lane on the 32-bit field layer (fe32.cuh,
+// point32.cuh; the lane body is fe32::ladder_lane). The TPU's sequential
+// window grid dimension, which carried the accumulator in VMEM scratch,
+// becomes the window loop inside the thread. The lane loads its T bases
+// once from the 13-bit rows, builds per base the table [O, Q, .., 8Q] with
+// 7 adds into the block's shared memory, [base][entry][coordinate][word]
+// [lane] with the lane innermost, so that a warp's loads of one word fall
+// on 32 banks (864 B a base and lane in words; 55.3 KB at T = 2 and 32
+// lanes, 221 KB at T = 8). A block takes at most 32 lanes, fewer where T
+// tables of 32 lanes would not fit the 227 KB a block may opt into; the
+// wrapper refuses a T whose one-lane tables do not fit. Per window: 4
+// doublings, then per term a masked select over all 9 entries (every
+// entry's words load whatever the digit: scalar_mul serves secret
+// scalars, and a load indexed by the digit would show it in the banks'
+// timing), beta * X for the odd GLV terms after the select (:991-992), a
+// masked y-negation and a complete add, all force-inlined in registers.
+// With H == 1 the first window seeds the accumulator from the selected
+// entry instead of adding it to O (:999-1007). The result stores once,
+// canonical, in 13-bit limbs. A glv launch on a curve without an
+// endomorphism (P-256) is refused before it starts.
 //
-// Bound: operations — per window 4 doublings (~11.2k 32-bit integer
-// operations each) and H adds (~18.7k each), from the generator's counts.
+// Bound: operations — per window 4 doublings (1832 instructions each on
+// secp256k1, 3837 on P-256, kernels.work design "fe32") and H adds (2887,
+// 4274); the bases, digits and result are a few hundred bytes a lane. What
+// is left between the time and the bound is latency: the verify's B = 4096
+// lanes are 128 warps, one on each of 128 SMs, each waiting on its own
+// dependent multiply-adds.
+//
+// ptxas (-Xptxas -v, sm_90a): secp256k1 255 and 228 registers (the
+// instances S = 0 and 32), P-256 254, 0 bytes of stack and spill;
+// chip_smoke.py prints them at each build and fails on a spill.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_ladder.cuh"
+#include "point32.cuh"
 
-#define N KFE_FP_N
-#define PN (3 * N)
-#define TBL 9
-#define THREADS 32
+#define MAX_LANES 32
 
-__device__ static void identity(uint32_t* p) {
-  uint32_t one[N];
-  kfe_fp_one(one);
-  for (int i = 0; i < N; ++i) {
-    p[i] = 0u;
-    p[N + i] = one[i];
-    p[2 * N + i] = 0u;
-  }
-}
-
-__global__ void ladder_kernel(const uint32_t* __restrict__ bases,
-                              const uint32_t* __restrict__ mag,
-                              const uint32_t* __restrict__ neg,
-                              uint32_t* __restrict__ out,
-                              uint32_t* __restrict__ tbl, int T, int H,
-                              int nw, int glv, int B) {
+// One lane's work: its column of the block's tables, at lane stride S (a
+// compile-time constant) or, with S = 0, blockDim.x.
+template <int S>
+__device__ __forceinline__ void ladder_block(const uint32_t* __restrict__ bases,
+                                             const uint32_t* __restrict__ mag,
+                                             const uint32_t* __restrict__ neg,
+                                             uint32_t* __restrict__ out, int T, int H, int nw,
+                                             int glv, int B) {
+  extern __shared__ uint32_t tables[];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  uint32_t acc[PN], cur[PN], nxt[PN], sel[PN], tmp[N];
-  identity(sel);
-
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    uint32_t* tb = tbl + (size_t)t * TBL * PN * B;
-    for (int j = 0; j < PN; ++j) {
-      acc[j] = bases[((size_t)t * PN + j) * B + lane];  // the base, steady
-      cur[j] = acc[j];
-      tb[(size_t)j * B + lane] = sel[j];                // entry 0: O
-      tb[((size_t)PN + j) * B + lane] = acc[j];         // entry 1: Q
-    }
-#pragma unroll 1
-    for (int k = 2; k < TBL; ++k) {
-      kfe_padd(cur, acc, nxt);
-      for (int j = 0; j < PN; ++j) {
-        cur[j] = nxt[j];
-        tb[((size_t)k * PN + j) * B + lane] = nxt[j];
-      }
-    }
-  }
-
-  identity(acc);
-#pragma unroll 1
-  for (int w = 0; w < nw; ++w) {
-#pragma unroll 1
-    for (int d = 0; d < 4; ++d) {
-      kfe_pdouble(acc, nxt);
-      for (int j = 0; j < PN; ++j) acc[j] = nxt[j];
-    }
-#pragma unroll 1
-    for (int h = 0; h < H; ++h) {
-      const int t = glv ? (h >> 1) : h;
-      const size_t dg = ((size_t)w * H + h) * B + lane;
-      const uint32_t m = mag[dg];
-      const bool ng = neg[dg] != 0u;
-      const uint32_t* tb = tbl + (size_t)t * TBL * PN * B;
-      identity(sel);
-#pragma unroll 1
-      for (int k = 0; k < TBL; ++k) {
-        const bool hit = (m == (uint32_t)k);
-        for (int j = 0; j < PN; ++j) {
-          const uint32_t v = tb[((size_t)k * PN + j) * B + lane];
-          sel[j] = hit ? v : sel[j];
-        }
-      }
-#ifdef KFE_HAS_BETA
-      if (glv && (h & 1)) {  // psi(x, y) = (beta * x, y) after the select
-        kfe_fp_mul_beta(sel, tmp);
-        for (int i = 0; i < N; ++i) sel[i] = tmp[i];
-      }
-#endif
-      kfe_fp_neg(sel + N, tmp);
-      for (int i = 0; i < N; ++i) sel[N + i] = ng ? tmp[i] : sel[N + i];
-      if (H == 1 && w == 0) {
-        for (int j = 0; j < PN; ++j) acc[j] = sel[j];
-      } else {
-        kfe_padd(acc, sel, nxt);
-        for (int j = 0; j < PN; ++j) acc[j] = nxt[j];
-      }
-    }
-  }
-  for (int j = 0; j < PN; ++j) out[(size_t)j * B + lane] = acc[j];
+  fe32::ladder_lane<Curve32>(bases, mag, neg, out, tables + threadIdx.x,
+                             S > 0 ? (uint32_t)S : blockDim.x, T, H, nw, glv != 0, B, lane);
 }
 
-// bases [T, 3, n, B]; mag, neg [nw, H, B]; out [3, n, B];
-// tbl: scratch of T * 9 * 3n * B words.
-extern "C" int ladder_launch(const void* bases, const void* mag,
-                             const void* neg, void* out, void* tbl, int T,
-                             int H, int nw, int glv, int B, int* launched,
-                             void* stream) {
-#ifndef KFE_HAS_BETA
-  if (glv) {  // the curve has no endomorphism: no psi to apply
-    *launched = 0;
-    return (int)cudaErrorInvalidValue;
+// Each field's build takes the form that ran fastest on an H100, both with
+// 0 bytes of spill (tools/bench_ladder_forms.py times all four; PERF.md):
+//   - solinas (secp256k1): at least 1 block an SM, and for full blocks (T
+//     <= 8) the lane stride MAX_LANES as a constant, so that each table word
+//     loads at an immediate offset: 2.42 ms against 2.65 with the stride in
+//     a register. Without the minimum, ptxas held the build to 168
+//     registers and spilled 16-24 B;
+//   - Montgomery (P-256): no minimum, the stride in a register (254
+//     registers): 5.89 ms against 7.59 in the solinas form, whose
+//     constant-stride instance ptxas held to 203 registers.
+template <int S>
+__global__ void __launch_bounds__(MAX_LANES, 1)
+    ladder_kernel(const uint32_t* __restrict__ bases, const uint32_t* __restrict__ mag,
+                  const uint32_t* __restrict__ neg, uint32_t* __restrict__ out, int T,
+                  int H, int nw, int glv, int B) {
+  ladder_block<S>(bases, mag, neg, out, T, H, nw, glv, B);
+}
+
+template <int S>
+__global__ void __launch_bounds__(MAX_LANES)
+    ladder_mont_kernel(const uint32_t* __restrict__ bases, const uint32_t* __restrict__ mag,
+                       const uint32_t* __restrict__ neg, uint32_t* __restrict__ out, int T,
+                       int H, int nw, int glv, int B) {
+  ladder_block<S>(bases, mag, neg, out, T, H, nw, glv, B);
+}
+
+typedef void (*ladder_fn)(const uint32_t*, const uint32_t*, const uint32_t*, uint32_t*, int,
+                          int, int, int, int);
+
+template <class C>
+static ladder_fn ladder_form(int lanes) {
+  if constexpr (C::MONT) {
+    return ladder_mont_kernel<0>;
+  } else {
+    return lanes == MAX_LANES ? ladder_kernel<MAX_LANES> : ladder_kernel<0>;
   }
-#endif
-  ladder_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
-                  (cudaStream_t)stream>>>(
-      (const uint32_t*)bases, (const uint32_t*)mag, (const uint32_t*)neg,
-      (uint32_t*)out, (uint32_t*)tbl, T, H, nw, glv, B);
+}
+
+// bases [T, 3, n, B]; mag, neg [nw, H, B]; out [3, n, B]; `lanes` a block
+// (kernels.ladder_lanes: at most 32, with T * 864 B * lanes of shared
+// memory).
+extern "C" int ladder_launch(const void* bases, const void* mag, const void* neg, void* out,
+                             int T, int H, int nw, int glv, int B, int lanes, int* launched,
+                             void* stream) {
+  *launched = 0;
+  if ((glv && !Curve32::HAS_BETA) || lanes < 1 || lanes > MAX_LANES)
+    return (int)cudaErrorInvalidValue;  // glv: the curve has no endomorphism
+  const size_t smem = (size_t)T * fe32::TBL * 3 * Curve32::N * sizeof(uint32_t) * lanes;
+  const ladder_fn kernel = ladder_form<Curve32>(lanes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + lanes - 1) / lanes, lanes, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)bases, (const uint32_t*)mag, (const uint32_t*)neg, (uint32_t*)out, T,
+      H, nw, glv, B);
   *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,20 @@
 // point32.cuh: projective points on the 32-bit field layer (fe32.cuh), the
-// complete RCB 2015 add, and the per-lane bodies of the kernels that run on
-// it (padd_chain.cu, segscan.cu keep only the launch).
+// complete RCB 2015 formulas, and the per-lane bodies of the kernels that run
+// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu keep only the
+// launch).
 //
-// The add is RCB Algorithm 7 (a = 0, C::A0) or Algorithm 4 (a = -3), in
-// the statement order of ops/kfe.py `_kadd_a0` and `_kadd_am3`, which is the
-// Pallas bodies' own (tpu_ecc/ops/pallas_kernels.py:46-225). Every field
-// operation is exact mod p, so each projective coordinate equals, mod p,
-// the 13-bit kernels' and tpu_ecc's; the limbs differ, because every value
-// here is canonical (fe32.cuh) and the rows are stored canonical.
+// The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
+// add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
+// ops/kfe.py `_kadd_a0`, `_kadd_mixed_a0`, `_kdouble_a0` and their a = -3
+// twins, which is the Pallas bodies' own (tpu_ecc/ops/pallas_kernels.py:
+// 46-225). Every field operation is exact mod p, so each projective
+// coordinate equals, mod p, the 13-bit kernels' and tpu_ecc's; the limbs
+// differ, because every value here is canonical (fe32.cuh) and the rows are
+// stored canonical.
 //
 // Everything is force-inlined: a point is 3N words (24 registers at N = 8),
-// and the add with its temporaries lives in registers, with no call and no
-// stack between the field operations.
+// and each formula with its temporaries lives in registers, with no call
+// and no stack between the field operations.
 #pragma once
 #include "fe32.cuh"
 
@@ -108,6 +111,156 @@ FE32_FN Pt<C> padd(const Pt<C>& p, const Pt<C>& q) {
   }
 }
 
+// RCB 2015 Algorithm 8 (a = 0): p + (x2 : y2 : 1); q must not be O
+template <class C>
+FE32_FN Pt<C> padd_mixed_a0(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
+  E<C> t0 = mul<C>(p.x, x2);
+  E<C> t1 = mul<C>(p.y, y2);
+  E<C> t3 = mul<C>(add<C>(x2, y2), add<C>(p.x, p.y));
+  t3 = sub<C>(t3, add<C>(t0, t1));
+  E<C> t4 = add<C>(mul<C>(y2, p.z), p.y);
+  E<C> Y3 = add<C>(mul<C>(x2, p.z), p.x);
+  t0 = add<C>(add<C>(t0, t0), t0);
+  E<C> t2 = mul_b<C>(p.z);
+  E<C> Z3 = add<C>(t1, t2);
+  t1 = sub<C>(t1, t2);
+  Y3 = mul_b<C>(Y3);
+  E<C> X3 = mul<C>(t4, Y3);
+  t2 = mul<C>(t3, t1);
+  X3 = sub<C>(t2, X3);
+  Y3 = mul<C>(Y3, t0);
+  t1 = mul<C>(t1, Z3);
+  Y3 = add<C>(t1, Y3);
+  t0 = mul<C>(t0, t3);
+  Z3 = mul<C>(Z3, t4);
+  Z3 = add<C>(Z3, t0);
+  return Pt<C>{X3, Y3, Z3};
+}
+
+// RCB 2015 Algorithm 5 (a = -3): p + (x2 : y2 : 1); q must not be O
+template <class C>
+FE32_FN Pt<C> padd_mixed_am3(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
+  E<C> t0 = mul<C>(p.x, x2);
+  E<C> t1 = mul<C>(p.y, y2);
+  E<C> t3 = mul<C>(add<C>(x2, y2), add<C>(p.x, p.y));
+  t3 = sub<C>(t3, add<C>(t0, t1));
+  E<C> t4 = add<C>(mul<C>(y2, p.z), p.y);
+  E<C> Y3 = add<C>(mul<C>(x2, p.z), p.x);
+  E<C> Z3 = mul_b<C>(p.z);
+  E<C> X3 = sub<C>(Y3, Z3);
+  Z3 = add<C>(X3, X3);
+  X3 = add<C>(X3, Z3);
+  Z3 = sub<C>(t1, X3);
+  X3 = add<C>(t1, X3);
+  Y3 = mul_b<C>(Y3);
+  t1 = add<C>(add<C>(p.z, p.z), p.z);
+  Y3 = sub<C>(sub<C>(Y3, t1), t0);
+  Y3 = add<C>(add<C>(Y3, Y3), Y3);
+  t0 = add<C>(add<C>(t0, t0), t0);
+  t0 = sub<C>(t0, t1);
+  t1 = mul<C>(t4, Y3);
+  E<C> t2 = mul<C>(t0, Y3);
+  Y3 = add<C>(mul<C>(X3, Z3), t2);
+  X3 = sub<C>(mul<C>(t3, X3), t1);
+  Z3 = add<C>(mul<C>(t4, Z3), mul<C>(t3, t0));
+  return Pt<C>{X3, Y3, Z3};
+}
+
+template <class C>
+FE32_FN Pt<C> padd_mixed(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
+  if constexpr (C::A0) {
+    return padd_mixed_a0<C>(p, x2, y2);
+  } else {
+    return padd_mixed_am3<C>(p, x2, y2);
+  }
+}
+
+// RCB 2015 Algorithm 9 (a = 0)
+template <class C>
+FE32_FN Pt<C> pdouble_a0(const Pt<C>& p) {
+  E<C> t0 = mul<C>(p.y, p.y);
+  E<C> Z3 = add<C>(t0, t0);
+  Z3 = add<C>(Z3, Z3);
+  Z3 = add<C>(Z3, Z3);
+  E<C> t1 = mul<C>(p.y, p.z);
+  E<C> t2 = mul<C>(p.z, p.z);
+  t2 = mul_b<C>(t2);
+  E<C> X3 = mul<C>(t2, Z3);
+  E<C> Y3 = add<C>(t0, t2);
+  Z3 = mul<C>(t1, Z3);
+  t1 = add<C>(t2, t2);
+  t2 = add<C>(t1, t2);
+  t0 = sub<C>(t0, t2);
+  Y3 = mul<C>(t0, Y3);
+  Y3 = add<C>(X3, Y3);
+  t1 = mul<C>(p.x, p.y);
+  X3 = mul<C>(t0, t1);
+  X3 = add<C>(X3, X3);
+  return Pt<C>{X3, Y3, Z3};
+}
+
+// RCB 2015 Algorithm 6 (a = -3)
+template <class C>
+FE32_FN Pt<C> pdouble_am3(const Pt<C>& p) {
+  E<C> t0 = mul<C>(p.x, p.x);
+  E<C> t1 = mul<C>(p.y, p.y);
+  E<C> t2 = mul<C>(p.z, p.z);
+  E<C> t3 = mul<C>(p.x, p.y);
+  t3 = add<C>(t3, t3);
+  E<C> Z3 = mul<C>(p.x, p.z);
+  Z3 = add<C>(Z3, Z3);
+  E<C> Y3 = mul_b<C>(t2);
+  Y3 = sub<C>(Y3, Z3);
+  E<C> X3 = add<C>(Y3, Y3);
+  Y3 = add<C>(X3, Y3);
+  X3 = sub<C>(t1, Y3);
+  Y3 = add<C>(t1, Y3);
+  Y3 = mul<C>(X3, Y3);
+  X3 = mul<C>(X3, t3);
+  t2 = add<C>(add<C>(t2, t2), t2);
+  Z3 = mul_b<C>(Z3);
+  Z3 = sub<C>(sub<C>(Z3, t2), t0);
+  Z3 = add<C>(add<C>(Z3, Z3), Z3);
+  t0 = add<C>(add<C>(t0, t0), t0);
+  t0 = sub<C>(t0, t2);
+  t0 = mul<C>(t0, Z3);
+  Y3 = add<C>(Y3, t0);
+  t0 = mul<C>(p.y, p.z);
+  t0 = add<C>(t0, t0);
+  Z3 = mul<C>(t0, Z3);
+  X3 = sub<C>(X3, Z3);
+  Z3 = mul<C>(t0, t1);
+  Z3 = add<C>(Z3, Z3);
+  Z3 = add<C>(Z3, Z3);
+  return Pt<C>{X3, Y3, Z3};
+}
+
+template <class C>
+FE32_FN Pt<C> pdouble(const Pt<C>& p) {
+  if constexpr (C::A0) {
+    return pdouble_a0<C>(p);
+  } else {
+    return pdouble_am3<C>(p);
+  }
+}
+
+// beta x, the x of the endomorphism psi(x, y) = (beta x, y) (C::HAS_BETA)
+template <class C>
+FE32_FN E<C> mul_beta(const E<C>& x) {
+  E<C> b;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) b.w[i] = C::beta(i);
+  return mul<C>(b, x);
+}
+
+// y, or p - y where ng: a select, never a branch on ng
+template <class C>
+FE32_FN E<C> cneg(const E<C>& y, bool ng) {
+  const E<C> yn = neg<C>(y);
+  E<C> r;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) r.w[i] = ng ? yn.w[i] : y.w[i];
+  return r;
+}
+
 // one point of a limb-major row: coordinate c, limb k at src[(c NL + k) stride]
 template <class C>
 FE32_FN Pt<C> load_point(const uint32_t* __restrict__ src, uint32_t stride) {
@@ -122,6 +275,78 @@ FE32_FN void store_point(const Pt<C>& p, uint32_t* __restrict__ dst, uint32_t st
   to_limbs<C>(p.x, dst, stride);
   to_limbs<C>(p.y, dst + s, stride);
   to_limbs<C>(p.z, dst + 2 * s, stride);
+}
+
+// c ? a : b, word by word: a select, never a branch on c
+template <class C>
+FE32_FN Pt<C> pselect(bool c, const Pt<C>& a, const Pt<C>& b) {
+  Pt<C> r;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+    r.x.w[i] = c ? a.x.w[i] : b.x.w[i];
+    r.y.w[i] = c ? a.y.w[i] : b.y.w[i];
+    r.z.w[i] = c ? a.z.w[i] : b.z.w[i];
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// the signed-digit tables: TBL = 9 entries [O, Q, .., 8Q] (the ladder's
+// points) or 9 affine points d 16^j G (genmul's comb row j), in canonical
+// words
+// ---------------------------------------------------------------------------
+
+constexpr int TBL = 9;
+
+// word j of a point (x, y, z: j = c N + i) at dst[j * stride]
+template <class C>
+FE32_FN void put_point(const Pt<C>& p, uint32_t* __restrict__ dst, uint32_t stride) {
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+    dst[i * stride] = p.x.w[i];
+    dst[(C::N + i) * stride] = p.y.w[i];
+    dst[(2 * C::N + i) * stride] = p.z.w[i];
+  }
+}
+
+// entry m in [0, 8] of the 9 points at tbl[(k 3N + j) * stride], as a
+// masked select over every entry: which words load does not depend on m,
+// so a secret digit shows in no address, branch or bank conflict
+template <class C>
+FE32_FN Pt<C> select_point(const uint32_t* __restrict__ tbl, uint32_t stride, uint32_t m) {
+  constexpr int PN = 3 * C::N;
+  uint32_t r[PN];
+  FE32_UNROLL for (int j = 0; j < PN; ++j) r[j] = tbl[j * stride];
+  FE32_UNROLL for (int k = 1; k < TBL; ++k) {
+    const bool hit = m == (uint32_t)k;
+    FE32_UNROLL for (int j = 0; j < PN; ++j) {
+      const uint32_t v = tbl[(k * PN + j) * stride];
+      r[j] = hit ? v : r[j];
+    }
+  }
+  Pt<C> p;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+    p.x.w[i] = r[i];
+    p.y.w[i] = r[C::N + i];
+    p.z.w[i] = r[2 * C::N + i];
+  }
+  return p;
+}
+
+// entry m in [0, 8] of the 9 affine points at row[k 2N + (0 | N) + i], a
+// masked select over every entry as select_point
+template <class C>
+FE32_FN void select_affine(const uint32_t* __restrict__ row, uint32_t m, E<C>& x, E<C>& y) {
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+    x.w[i] = row[i];
+    y.w[i] = row[C::N + i];
+  }
+  FE32_UNROLL for (int k = 1; k < TBL; ++k) {
+    const bool hit = m == (uint32_t)k;
+    FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+      const uint32_t vx = row[2 * k * C::N + i], vy = row[(2 * k + 1) * C::N + i];
+      x.w[i] = hit ? vx : x.w[i];
+      y.w[i] = hit ? vy : y.w[i];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -167,11 +392,7 @@ FE32_FN void segscan_lane(const uint32_t* __restrict__ key2, const uint32_t* __r
     const uint32_t row = (uint32_t)r * Lw + lane;   // [r, lane] of a [C, L] array
     const uint32_t kn = last ? k : key2[row + Lw];
     Pt<C> v = load_point<C>(val2 + (row - lane) * PN + lane, Lw);
-    if (neg2 != nullptr) {  // y of a negative digit's point: p - y, a select
-      const bool ng = neg2[row] != 0u;
-      const E<C> yn = neg<C>(v.y);
-      FE32_UNROLL for (int i = 0; i < C::N; ++i) v.y.w[i] = ng ? yn.w[i] : v.y.w[i];
-    }
+    if (neg2 != nullptr) v.y = cneg<C>(v.y, neg2[row] != 0u);  // a negative digit's point
     // keys are public: the add is skipped where the key changed
     if (k == pk) {
       acc = padd<C>(acc, v);
@@ -187,6 +408,109 @@ FE32_FN void segscan_lane(const uint32_t* __restrict__ key2, const uint32_t* __r
   }
   last_key[lane] = pk;
   store_point<C>(acc, tail + lane, Lw);
+}
+
+// ladder: sum_h d_h P_h for lane `lane` (the verify lincomb u1 G + u2 Q,
+// scalar_mul, the Straus MSM). bases [T, 3, NL, B] 13-bit rows; mag, neg
+// [nw, H, B], MSB window first; out [3, NL, B], canonical. H = T, or H = 2T
+// with glv: term 2t takes base t, term 2t + 1 psi(base t) = (beta x, y),
+// applied after the select (C::HAS_BETA; the launch refuses glv without
+// it). With H == 1 the first window seeds the accumulator from its
+// selected entry. tbl: this lane's T tables of 9 points, word j of entry k
+// of base t at tbl[((t TBL + k) 3N + j) * stride] (the kernel's shared
+// memory, the lane innermost).
+template <class C>
+FE32_FN void ladder_lane(const uint32_t* __restrict__ bases, const uint32_t* __restrict__ mag,
+                         const uint32_t* __restrict__ neg, uint32_t* __restrict__ out,
+                         uint32_t* __restrict__ tbl, uint32_t stride, int T, int H, int nw,
+                         bool glv, int B, int lane) {
+  constexpr uint32_t PN = 3 * C::N;
+  const uint32_t Bw = (uint32_t)B, ts = TBL * PN * stride;   // one base's table
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int t = 0; t < T; ++t) {   // [O, Q, .., 8Q] with 7 adds
+    uint32_t* tb = tbl + t * ts;
+    const Pt<C> q = load_point<C>(bases + t * 3 * C::NL * Bw + lane, Bw);
+    put_point<C>(identity<C>(), tb, stride);
+    put_point<C>(q, tb + PN * stride, stride);
+    Pt<C> cur = q;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int k = 2; k < TBL; ++k) {
+      cur = padd<C>(cur, q);
+      put_point<C>(cur, tb + k * PN * stride, stride);
+    }
+  }
+  Pt<C> acc = identity<C>();
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int w = 0; w < nw; ++w) {
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int d = 0; d < 4; ++d) acc = pdouble<C>(acc);
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int h = 0; h < H; ++h) {
+      const uint32_t t = glv ? h >> 1 : h;
+      const uint32_t dg = ((uint32_t)w * H + h) * Bw + lane;
+      Pt<C> s = select_point<C>(tbl + t * ts, stride, mag[dg]);
+      if constexpr (C::HAS_BETA) {
+        if (glv && (h & 1)) s.x = mul_beta<C>(s.x);
+      }
+      s.y = cneg<C>(s.y, neg[dg] != 0u);
+      if (H == 1 && w == 0) {
+        acc = s;
+      } else {
+        acc = padd<C>(acc, s);
+      }
+    }
+  }
+  store_point<C>(acc, out + lane, Bw);
+}
+
+// genmul's prologue: the comb's `coords` 13-bit coordinates (rows [nw, 9,
+// 2, NL], limbs contiguous) to canonical words in the layer's domain at
+// ctab[i N + j], coordinates tid, tid + nthreads, .. by this thread
+template <class C>
+FE32_FN void genmul_table(const uint32_t* __restrict__ tbl, uint32_t* __restrict__ ctab,
+                          int coords, int tid, int nthreads) {
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int i = tid; i < coords; i += nthreads) {
+    const E<C> v = from_limbs<C>(tbl + (uint32_t)i * C::NL, 1u);
+    FE32_UNROLL for (int j = 0; j < C::N; ++j) ctab[(uint32_t)i * C::N + j] = v.w[j];
+  }
+}
+
+// genmul: the fixed-base comb sum_j d_j 16^j G for lane `lane`. ctab: the
+// comb in words, [nw, 9, 2, N] (genmul_table; the same for every lane);
+// mag, neg [nw, B], LSB window first; out [3, NL, B], canonical. Per
+// window: a masked select of the affine entry, y or p - y by the sign, one
+// mixed add, and the sum kept where the digit is 0 (entry 0 is a dummy).
+template <class C>
+FE32_FN void genmul_lane(const uint32_t* __restrict__ ctab, const uint32_t* __restrict__ mag,
+                         const uint32_t* __restrict__ neg, uint32_t* __restrict__ out, int nw,
+                         int B, int lane) {
+  const uint32_t Bw = (uint32_t)B;
+  Pt<C> acc = identity<C>();
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int w = 0; w < nw; ++w) {
+    const uint32_t dg = (uint32_t)w * Bw + lane;
+    const uint32_t m = mag[dg];
+    E<C> x, y;
+    select_affine<C>(ctab + (uint32_t)w * TBL * 2 * C::N, m, x, y);
+    y = cneg<C>(y, neg[dg] != 0u);
+    acc = pselect<C>(m == 0u, acc, padd_mixed<C>(acc, x, y));
+  }
+  store_point<C>(acc, out + lane, Bw);
 }
 
 }  // namespace fe32

@@ -25,17 +25,19 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Two of them, `padd_chain` and `segscan`
-(FE32_KERNELS), run on the hand-written 32-bit field layer
+[.., n, B] uint32 arrays. Four of them, `padd_chain`, `segscan`, `ladder`
+and `genmul` (FE32_KERNELS), run on the hand-written 32-bit field layer
 (csrc/fe32.cuh, csrc/point32.cuh): they convert their 13-bit rows to 8
 words a coordinate on load, keep the point in registers, and store
 canonical 13-bit limbs; their generated header holds only the curve's
-constants (`kfe.fe32_header`). The others call straight-line field and
-point functions that ops/kfe.py generates from the KFE bound ledger into a
-header per (target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the
-a = -3 ones for P-256 and the other a = -3 curves, and the GLV multiply by
-beta only for a curve that has an endomorphism, `functions`), a bare field
-spec (`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
+constants (`kfe.fe32_header`, with the GLV beta where the curve has an
+endomorphism). `ladder` builds its tables [O, Q, .., 8Q] in shared memory
+(`ladder_lanes`), `genmul` converts the comb into shared memory once a
+block. The others call straight-line field and point functions that
+ops/kfe.py generates from the KFE bound ledger into a header per (target,
+kernel). A target is a curve (the a = 0 formulas for secp256k1, the a = -3
+ones for P-256 and the other a = -3 curves), a bare field spec
+(`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
 None (`dma_gather`, which has no generated header). The
 build is nvcc by hand into a shared library with a plain C interface, bound
 with ctypes, at first use (or by `build_targets`) into build/kernels/ beside
@@ -47,7 +49,7 @@ Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the two kernels
+so a kernel's output equals its twin's limb for limb; for the four kernels
 on the 32-bit layer, each projective coordinate equals the twin's mod p
 (the same formulas in the same order; the limb plan differs, and the
 kernels store canonical values), and `segscan` writes only the run-end
@@ -103,10 +105,10 @@ KERNELS = {
     "pow": ("pow.cu", ("fp_mul", "fp_sqr", "fn_mul", "fn_sqr"), "pow_launch",
             [_VP, _VP, _VP, _VP, _I, _I, _I],
             "tpu_ecc/ops/pallas_kernels.py:1140"),
-    "ladder": ("ladder.cu", ("padd", "pdouble", "fp_neg"),
-               "ladder_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I],
+    "ladder": ("ladder.cu", (), "ladder_launch",
+               [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:887"),
-    "genmul": ("genmul.cu", ("padd_mixed", "fp_neg"), "genmul_launch",
+    "genmul": ("genmul.cu", (), "genmul_launch",
                [_VP, _VP, _VP, _VP, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:1048"),
     "segscan": ("segscan.cu", (), "segscan_launch",
@@ -133,10 +135,14 @@ KERNELS = {
                      "tools/profile_ladder.py:72"),
 }
 
-FE32_KERNELS = ("padd_chain", "segscan")
+FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul")
 """The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
+SMEM_BLOCK = 232448
+"""Bytes of shared memory one block may opt into on an H100 (227 KB)."""
+LADDER_LANES = 32   # the most lanes a block of `ladder`
+GENMUL_LANES = 32   # the lanes a block of `genmul` (csrc/genmul.cu THREADS)
 CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
 PROBE_VARIANTS = ("bare", "unroll", "build", "select", "negate")
 
@@ -168,10 +174,8 @@ def _nvcc() -> str:
 
 def functions(name: str, target) -> tuple:
     """The generated functions kernel `name` takes for `target` (a curve, a
-    field spec or None): the ladder takes beta * x (psi) only where the
-    curve has an endomorphism."""
-    glv = ("fp_mul_beta",) if name == "ladder" and target.glv else ()
-    return KERNELS[name][1] + glv
+    field spec or None); none for FE32_KERNELS."""
+    return KERNELS[name][1]
 
 
 def target_name(target) -> str:
@@ -459,6 +463,18 @@ def fpow_plain(spec: F.FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
 # ladder
 # ---------------------------------------------------------------------------
 
+def ladder_lanes(T: int) -> int:
+    """Lanes a block of the `ladder` kernel takes for T bases: at most
+    LADDER_LANES, so that the lanes' tables (9 points of 3 * 8 words a base,
+    864 B) fit the block's shared memory. Raises where one lane's do not."""
+    per_lane = T * TBL * 3 * kfe.FE32_N * 4
+    lanes = min(LADDER_LANES, SMEM_BLOCK // per_lane)
+    if lanes < 1:
+        raise ValueError(f"ladder: the tables of T = {T} bases take {per_lane} B a lane, "
+                         f"above the {SMEM_BLOCK} B of shared memory a block can hold")
+    return lanes
+
+
 def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
            neg: torch.Tensor, glv: bool = False) -> torch.Tensor:
     """Signed-digit Straus ladder: bases [T, 3, n, B] steady limbs, digit
@@ -467,23 +483,28 @@ def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
 
     H = T, or H = 2T with `glv`: term 2t takes base t, term 2t+1 takes
     psi(base t) = (beta*x, y), applied after the select. With H == 1 the
-    first window seeds the accumulator from its selected entry."""
+    first window seeds the accumulator from its selected entry. The kernel
+    (on the 32-bit layer, its tables in shared memory: `ladder_lanes`
+    raises for a T whose one-lane tables do not fit) returns each
+    coordinate canonical: equal mod p to the twin's."""
     if glv and not curve.glv:
         raise ValueError(f"{curve.name} has no endomorphism")
     if bases.device.type == "cpu":
         return ladder_plain(curve, bases, mag, neg, glv)
     T, B = bases.shape[0], bases.shape[-1]
+    lanes = ladder_lanes(T)
     nw = mag.shape[0]
     H = 2 * T if glv else T
     n = curve.field.n_limbs
     _check(bases, (T, 3, n, B), "ladder bases")
     _check(mag, (nw, H, B), "ladder mag")
     _check(neg, (nw, H, B), "ladder neg")
+    _check_words(bases, "ladder bases")
+    _check_words(mag, "ladder mag")
     b32, m32, g32 = _u32(bases), _u32(mag), _u32(neg)
     out = torch.empty((3, n, B), dtype=torch.int32, device=bases.device)
-    tbl = torch.empty((T * TBL, 3, n, B), dtype=torch.int32, device=bases.device)
     _launch("ladder", curve, bases.device, b32.data_ptr(), m32.data_ptr(),
-            g32.data_ptr(), out.data_ptr(), tbl.data_ptr(), T, H, nw, int(glv), B)
+            g32.data_ptr(), out.data_ptr(), T, H, nw, int(glv), B, lanes)
     return _from_u32(out)
 
 
@@ -527,7 +548,9 @@ def genmul(curve: CurveSpec, tbl: torch.Tensor, mag: torch.Tensor,
     """Constant-time fixed-base comb: the affine table tbl [nw, 9, 2, n]
     (row j holds d * 16^j * G for d = 0..8, entry 0 a dummy), digit
     magnitudes mag [nw, B] in [0, 8] and sign masks neg [nw, B], LSB window
-    first -> steady [3, n, B] limbs of sum_j d_j 16^j G."""
+    first -> steady [3, n, B] limbs of sum_j d_j 16^j G. The kernel (on
+    the 32-bit layer, the comb converted into shared memory once a block)
+    returns each coordinate canonical: equal mod p to the twin's."""
     if mag.device.type == "cpu":
         return genmul_plain(curve, tbl, mag, neg)
     nw, B = mag.shape
@@ -535,6 +558,7 @@ def genmul(curve: CurveSpec, tbl: torch.Tensor, mag: torch.Tensor,
     _check(tbl, (nw, TBL, 2, n), "genmul tbl")
     _check(mag, (nw, B), "genmul mag")
     _check(neg, (nw, B), "genmul neg")
+    _check_words(mag, "genmul mag")
     t32, m32, g32 = _u32(tbl), _u32(mag), _u32(neg)
     out = torch.empty((3, n, B), dtype=torch.int32, device=mag.device)
     _launch("genmul", curve, mag.device, t32.data_ptr(), m32.data_ptr(),
@@ -1088,4 +1112,25 @@ def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
                     (C * B if signed else 0, {"wide": 0, "imad": 0, "alu": n, "other": 0}),
                     (3 * (kw["ends"] + 2 * B), c["store"]))
         return ops, _segscan_bytes(pn, B, **kw)
+    if name == "ladder":
+        T, nw, glv = kw["T"], kw["nw"], kw["glv"]
+        H = 2 * T if glv else T
+        # per lane: the bases' load and 7 adds a table; per window 4
+        # doublings; per term the select, beta * x for the odd GLV terms,
+        # the sign's negation and an add (none in the seeded first window
+        # of H == 1); the store
+        ops = total((3 * T * B, c["load"]), (7 * T * B, c["padd"]),
+                    (4 * nw * B, c["pdouble"]), (nw * H * B, c["select_point"]),
+                    (nw * T * B if glv else 0, c["mul_beta"]), (nw * H * B, c["cneg"]),
+                    ((nw * H - (H == 1)) * B, c["padd"]), (3 * B, c["store"]))
+        return ops, (T * pn + 2 * nw * H + pn) * 4 * B
+    if name == "genmul":
+        nw = kw["nw"]
+        blocks = -(-B // GENMUL_LANES)
+        # per block the prologue's conversion of the comb; per lane and
+        # window the select, the sign's negation, a mixed add and the keep
+        ops = total((nw * TBL * 2 * blocks, c["load"]), (nw * B, c["select_affine"]),
+                    (nw * B, c["cneg"]), (nw * B, c["padd_mixed"]), (nw * B, c["pselect"]),
+                    (3 * B, c["store"]))
+        return ops, nw * TBL * 2 * (pn // 3) * 4 + (2 * nw + pn) * 4 * B
     raise KeyError(f"{name} does not run on the 32-bit layer")

@@ -939,14 +939,12 @@ def kernel_header(target, names) -> tuple[str, dict]:
     """C++ header for `target` (a curve, or a bare field spec) with the
     generated functions `names`, each named `kfe_<name>`, the limb counts
     KFE_FP_N (and for a curve KFE_FN_N), the base field's limb width
-    KFE_FP_BITS, KFE_HAS_BETA where `fp_mul_beta` is among them, and each
-    field's encoded one. Returns (source, {name: instruction counts by
-    class})."""
+    KFE_FP_BITS, and each field's encoded one. Returns (source, {name:
+    instruction counts by class})."""
     fields = _fields(target)
     kind = "field" if isinstance(target, FieldSpec) else "curve"
     parts = [_PREAMBLE, f"// {kind}: {target.name}\n",
-             f"#define KFE_FP_BITS {fields[0][1].limb_bits}\n",
-             "#define KFE_HAS_BETA 1\n" if "fp_mul_beta" in names else ""]
+             f"#define KFE_FP_BITS {fields[0][1].limb_bits}\n"]
     for pre, spec in fields:
         parts += [f"#define KFE_{pre.upper()}_N {spec.n_limbs}\n",
                   _const_function(f"kfe_{pre}_one",
@@ -984,7 +982,9 @@ def fe32_constants(curve, n_words: int = FE32_N) -> dict:
     carry analysis of csrc/fe32.cuh checked for it: p, F = 2^(32N) mod p,
     the domain (Montgomery with R32 = 2^(32N) where the 13-bit plan is
     Montgomery) and its maps to and from the 13-bit plan's R13, the
-    formula's b multiplier in the domain, and the 13-bit rows' limb plan."""
+    formula's b multiplier in the domain, the GLV beta in the domain where
+    the curve has an endomorphism (HAS_BETA), and the 13-bit rows' limb
+    plan."""
     if curve.strategy not in ("a0", "a_minus3"):
         raise NotImplementedError(
             f"{curve.name}: the {curve.strategy} formulas are not ported to the 32-bit layer")
@@ -1010,7 +1010,8 @@ def fe32_constants(curve, n_words: int = FE32_N) -> dict:
         "N": N, "NL": NL, "LB": LB, "FW": FW, "MONT": mont, "A0": curve.strategy == "a0",
         "N0": (-pow(p, -1, 1 << 32)) % (1 << 32), "BSMALL": bsmall,
         "p": _words(p, N), "f": _words(F, FW), "one": _words(enc(1), N),
-        "bmul": _words(enc(b_plain), N),
+        "bmul": _words(enc(b_plain), N), "HAS_BETA": bool(curve.glv),
+        "beta": _words(enc(curve.glv["beta"]) if curve.glv else 0, N),
         # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
         "to32": _words(r32 * r32 * pow(f.W, -1, p) % p if mont else 0, N),
         "to13": _words(f.W % p if mont else 0, N),
@@ -1030,9 +1031,11 @@ def fe32_header(curve) -> str:
     the word index, folded where the layer's loops are unrolled)."""
     k = fe32_constants(curve)
     ints = "".join(f"  static constexpr int {n} = {k[n]};\n" for n in ("N", "NL", "LB", "FW"))
-    flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n" for n in ("MONT", "A0"))
+    flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n"
+                    for n in ("MONT", "A0", "HAS_BETA"))
     words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n" for n in ("N0", "BSMALL"))
-    funcs = "".join(_word_function(n, k[n]) for n in ("p", "f", "one", "bmul", "to32", "to13"))
+    funcs = "".join(_word_function(n, k[n])
+                    for n in ("p", "f", "one", "bmul", "beta", "to32", "to13"))
     return ("// Generated by tpu_ecc_torch/ops/kfe.py (fe32_header). Do not edit.\n"
             f"// The 32-bit field layer's constants for {curve.name}.\n"
             "#pragma once\n#include <stdint.h>\n"
@@ -1069,19 +1072,23 @@ class _Tally:
 
 _POINT32 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "csrc", "point32.cuh")
-_PADD_FE32 = {"a0": "padd_a0", "a_minus3": "padd_am3"}
 _FE32_CALL = re.compile(r"\b(mul_b|mul|add|sub)<C>\(")
+_FE32_SUFFIX = {"a0": "a0", "a_minus3": "am3"}
+FE32_POINT_FNS = ("padd", "padd_mixed", "pdouble")
+"""The point formulas of csrc/point32.cuh, each with a body per strategy
+(`padd_a0`, `padd_am3`, ...)."""
 
 
-def padd_fe32_ops(strategy: str) -> dict:
-    """{mul, mul_b, add, sub: calls} in the body of the add for `strategy`
-    (csrc/point32.cuh `padd_a0` or `padd_am3`), read from the header."""
+def fe32_point_ops(fn: str, strategy: str) -> dict:
+    """{mul, mul_b, add, sub: calls} in the body of the point formula `fn`
+    (FE32_POINT_FNS) for `strategy` (csrc/point32.cuh `<fn>_a0` or
+    `<fn>_am3`), read from the header."""
+    name = f"{fn}_{_FE32_SUFFIX[strategy]}"
     with open(_POINT32) as fh:
         text = fh.read()
-    body = re.search(r"FE32_FN Pt<C> %s\(.*?\) \{\n(.*?)\n\}" % _PADD_FE32[strategy],
-                     text, re.S)
+    body = re.search(r"FE32_FN Pt<C> %s\(.*?\) \{\n(.*?)\n\}" % name, text, re.S)
     if body is None:
-        raise ValueError(f"{_POINT32}: no {_PADD_FE32[strategy]} body")
+        raise ValueError(f"{_POINT32}: no {name} body")
     ops = dict.fromkeys(("mul", "mul_b", "add", "sub"), 0)
     for op in _FE32_CALL.findall(body.group(1)):
         ops[op] += 1
@@ -1097,8 +1104,12 @@ def fe32_counts(curve) -> dict:
     a power of two or 2^32 - 1, by N0 = 1 or by a word of all ones masked
     (see `_Tally.mac`), and one shift-add
     (LEA) per limb part packed or one funnel shift and one AND per limb
-    unpacked. Returns {name: counts} for add, sub, neg, mul, mul_b, load
-    (a 13-bit coordinate to the domain), store (back) and padd."""
+    unpacked. Returns {name: counts} for add, sub, neg, mul, mul_b,
+    mul_beta, load (a 13-bit coordinate to the domain), store (back), cneg
+    (y or p - y), pselect (a point's select), select_point and
+    select_affine (an entry of 9 points or 9 affine points, a compare and
+    a select of each word for each entry but the first), and the point
+    formulas FE32_POINT_FNS."""
     k = fe32_constants(curve)
     N, FW, NL, LB = k["N"], k["FW"], k["NL"], k["LB"]
     P, Fw = k["p"], k["f"]
@@ -1184,15 +1195,23 @@ def fe32_counts(curve) -> dict:
             mul_mont(t)
         t(other=sum(1 for i in range(NL) if (i * LB) % 32), alu=NL)
 
+    def cneg(t):
+        sub(t)
+        t(alu=N)
+
     fns = {"add": add, "sub": sub, "neg": sub, "mul": mul, "mul_b": mul_b,
-           "load": load, "store": store}
+           "mul_beta": mul, "load": load, "store": store, "cneg": cneg,
+           "pselect": lambda t: t(alu=3 * N),
+           "select_point": lambda t: t(alu=8 * (1 + 3 * N)),
+           "select_affine": lambda t: t(alu=8 * (1 + 2 * N))}
     out = {}
     for name, fn in fns.items():
         t = _Tally()
         fn(t)
         out[name] = t.c
-    padd = _Tally()
-    for op, times in padd_fe32_ops(curve.strategy).items():
-        padd(**{c: times * v for c, v in out[op].items()})
-    out["padd"] = padd.c
+    for name in FE32_POINT_FNS:
+        t = _Tally()
+        for op, times in fe32_point_ops(name, curve.strategy).items():
+            t(**{c: times * v for c, v in out[op].items()})
+        out[name] = t.c
     return out
