@@ -11,10 +11,11 @@
    Montgomery fields; ladder_probe for secp256k1); then the native signing
    code (g++). Prints the seconds it took and ptxas's registers and stack
    for each. The kernels on the 32-bit field layer (padd_chain, ladder and
-   genmul for both curves, segscan) must show 0 bytes of spill stores and
-   loads; for each, the instructions of its loop bodies in the built SASS
-   (cuobjdump -sass), by class, print beside the count of kernels.work's
-   "fe32" design.
+   genmul for both curves, segscan, bucket_reduce, horner) must show 0
+   bytes of spill stores and loads; for each, the instructions of its loop
+   bodies in the built SASS (cuobjdump -sass; bucket_reduce's tree step,
+   which has no loop, whole), by class, print beside the count of
+   kernels.work's "fe32" design.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
    for the kernels on the 32-bit layer, which store canonical values, zero
@@ -56,8 +57,11 @@
 7. MSM: 2^20 points P_i = a_i*G made on the card (`derive_public_batch`)
    and full-width k_i, from a seed. Holds the four Pippenger phase kernels
    against their twins on the card at the shapes the first group of
-   windows gives them (segscan signed and unsigned, fixup, bucket_reduce
-   with and without drop0, horner on the 19 window sums). Then `msm()`
+   windows gives them (segscan signed and unsigned, fixup and
+   bucket_reduce also at the last group's 3 windows, bucket_reduce with
+   and without drop0, horner on the 19 window sums; bucket_reduce and
+   horner by canonical coordinates, and horner's one-thread bound in both
+   designs' counts). Then `msm()`
    (signed, w = 14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one
    host `aff_mul`, with every phase kernel launched; the device core
    (packed tensors in, point out, closed by a synchronize) runs 5 times. A
@@ -255,17 +259,20 @@ def sass_class(op: str) -> str:
     return "control"
 
 
-SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E", "ladder_mont_kernel")}
+SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E", "ladder_mont_kernel"),
+                 "bucket_reduce": ("bucket_reduce_pair_kernelILb0E",)}
 """The functions whose SASS `sass_loop_counts` reads, where they are not
 `<kernel>_kernel`: the ladder's instance for full blocks, one a build
-(csrc/ladder.cu)."""
+(csrc/ladder.cu); bucket_reduce's tree step from words to words, one add."""
 
 
 def sass_loop_counts(so: str, kernel: str) -> list:
     """The instructions of each loop body of `kernel` (its function, or
     SASS_FUNCTION's) in the library `so` (cuobjdump -sass: the span from a
-    backward branch's target to the branch), by sass_class, the largest
-    first (an outer loop's count holds its inner loops')."""
+    backward branch's target to the branch, not counting the branch to
+    itself that ends every function), by sass_class, the largest
+    first (an outer loop's count holds its inner loops'); of the whole
+    function where it has no loop."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
@@ -295,9 +302,11 @@ def sass_loop_counts(so: str, kernel: str) -> list:
             lab = re.search(r"(\.L_x_\d+)", body)
             hexa = re.search(r"0x([0-9a-f]+)", body)
             target = labels.get(lab.group(1)) if lab else int(hexa.group(1), 16) if hexa else None
-            if target is not None and target <= addr:
+            if target is not None and target < addr:   # not the trailing self-branch
                 loops.append((target, addr))
     bodies = []
+    if not loops and insts:
+        loops = [(insts[0][0], insts[-1][0])]
     for lo, hi in sorted(set(loops), key=lambda t: t[0] - t[1]):
         counts = {}
         for addr, op, _ in insts:
@@ -938,29 +947,47 @@ def main() -> int:
          adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
          ends=int(run_ends(key2[:16]).sum()), signed=False)
     scanned, last_key, tail, lead = K.segscan(curve, key2, val2, nbuck, neg2)
-    fix_adds = sum(int((last_key[:, s:] == last_key[:, :-s]).sum())
+
+    def fix_adds(lk):
+        return sum(int((lk[:, s:] == lk[:, :-s]).sum())
                    for s in (1 << i for i in range(MSM_LANES.bit_length() - 1)))
+
     hold("fixup", f"lanes={per}x{MSM_LANES}",
          lambda: K.fixup(curve, tail, last_key, key2[0], lead),
          lambda: K.fixup_plain(curve, tail, last_key, key2[0], lead), 5, B=lanes,
-         adds=fix_adds)
+         adds=fix_adds(last_key))
+    # the last group's 3 windows
+    t3, lk3, fk3, ld3 = (x[..., :3, :].contiguous() for x in (tail, last_key, key2[0], lead))
+    hold("fixup", f"lanes=3x{MSM_LANES}", lambda: K.fixup(curve, t3, lk3, fk3, ld3),
+         lambda: K.fixup_plain(curve, t3, lk3, fk3, ld3), 5, B=3 * MSM_LANES,
+         adds=fix_adds(lk3))
     fixed = K.fixup(curve, tail, last_key, key2[0], lead)
     buckets = M.bucket_lookup(curve, skey, scanned, fixed, key2[0], nbuck)
     for drop0 in (False, True):          # False: the signed path's
         hold("bucket_reduce", f"nbuck={nbuck} windows={per} drop0={drop0}",
              lambda: K.bucket_reduce(curve, buckets, drop0),
              lambda: K.bucket_reduce_plain(curve, buckets, drop0), 5, B=nbuck,
-             groups=per)
+             compare=coord_diff(curve), groups=per)
+    last = buckets[:, :, :3].contiguous()     # the last group's 3 windows
+    hold("bucket_reduce", f"nbuck={nbuck} windows=3 drop0=False",
+         lambda: K.bucket_reduce(curve, last, False),
+         lambda: K.bucket_reduce_plain(curve, last, False), 5, B=nbuck,
+         compare=coord_diff(curve), groups=3)
+    warps = per * nbuck // 32
+    print(f"  bucket_reduce: a suffix step of {per} windows is {warps} warps, "
+          f"{warps / (4 * SMS):.3f} a scheduler")
     s_all = torch.cat([M.window_sums(curve, payload, keys[j:j + per], negs[j:j + per],
                                      MSM_LANES, nbuck, True)
                        for j in range(0, keys.shape[0], per)], -1).permute(2, 0, 1)
     nw = s_all.shape[0]
     hold("horner", f"w={MSM_W} nw={nw}", lambda: K.horner(curve, s_all, MSM_W),
-         lambda: K.horner_plain(curve, s_all, MSM_W), 5, B=1, nw=nw, w=MSM_W)
-    ops, _ = K.work("horner", curve, 1, nw=nw, w=MSM_W)
-    rows["horner"]["thread_bound_ms"] = 1e3 * sum(ops.values()) / clock_hz
-    print(f"  horner's one-thread bound (one instruction per clock): "
-          f"{rows['horner']['thread_bound_ms']:.4f} ms")
+         lambda: K.horner_plain(curve, s_all, MSM_W), 5, B=1, compare=coord_diff(curve),
+         nw=nw, w=MSM_W)
+    thread_ms = {d: 1e3 * sum(K.work("horner", curve, 1, design=d, nw=nw, w=MSM_W)[0].values())
+                 / clock_hz for d in K.designs("horner")}
+    rows["horner"]["thread_bound_ms"] = min(thread_ms.values())
+    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
+        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
     del skey, key2, val2, neg2, scanned, fixed, payload
     torch.cuda.synchronize()
 

@@ -128,6 +128,41 @@ int main(int argc, char** argv) {
     wr(out);
     return 0;
   }
+  if (!strcmp(m, "bucket")) {  // bucket total nbuck drop0: the launch's steps, rows -> rows
+    const uint32_t nb = (uint32_t)atoi(argv[3]), total = (uint32_t)n, groups = total / nb;
+    const bool drop0 = atoi(argv[4]) != 0;
+    V rows = rd(PN * n), out(PN * groups);
+    V bufs[2] = {V(3 * N * n, 0xFFFFFFFFu), V(3 * N * n, 0xFFFFFFFFu)};
+    const uint32_t* src = rows.data();
+    int k = 0;
+    for (uint32_t s = 1; s < nb; s *= 2, ++k) {
+      uint32_t* dst = bufs[k & 1].data();
+      for (uint32_t b = 0; b < total; ++b) {
+        if (s == 1) bucket_suffix_lane<C, true>(src, dst, s, nb, total, b);
+        else bucket_suffix_lane<C, false>(src, dst, s, nb, total, b);
+      }
+      src = dst;
+    }
+    for (uint32_t width = nb; width > 1; width /= 2, ++k) {
+      const uint32_t len = groups * width;
+      const bool z = drop0 && width == nb;
+      uint32_t* dst = width == 2 ? out.data() : bufs[k & 1].data();
+      for (uint32_t t = 0; t < len / 2; ++t) {
+        if (width == 2) bucket_pair_lane<C, true>(src, dst, width, len, z, t);
+        else bucket_pair_lane<C, false>(src, dst, width, len, z, t);
+      }
+      src = dst;
+    }
+    wr(out);
+    return 0;
+  }
+  if (!strcmp(m, "horner")) {  // horner 1 nw w: s_all [nw, 3, NL] -> [3, NL]
+    const int nw = atoi(argv[3]), w = atoi(argv[4]);
+    V s_all = rd(nw * PN), out(PN);
+    horner_lane<C>(s_all.data(), out.data(), nw, w);
+    wr(out);
+    return 0;
+  }
   if (!strcmp(m, "load")) {  // NL limbs a lane -> N words
     V in = rd(NL * n), out(N * n);
     for (size_t l = 0; l < n; ++l) put(out, l, from_limbs<C>(&in[l * NL], 1));
@@ -593,11 +628,76 @@ def test_segscan_body_equals_plain(harness, signed):
 
 
 # ---------------------------------------------------------------------------
+# the bucket_reduce and horner bodies
+# ---------------------------------------------------------------------------
+
+def _host_sum(curve, terms):
+    """sum k * P over (k, P or None) by the host oracle."""
+    acc = None
+    for k, pt in terms:
+        acc = H.aff_add(curve, acc, H.aff_mul(curve, k, pt))
+    return acc
+
+
+@pytest.mark.parametrize("drop0", [False, True], ids=["signed", "drop0"])
+@pytest.mark.parametrize("cname", CURVES)
+def test_bucket_body_equals_plain(harness, cname, drop0):
+    """bucket_suffix_lane and bucket_pair_lane step by step as the launch
+    runs them, on 2 windows of 64 buckets, against bucket_reduce_plain
+    coordinate by coordinate mod p, and sum_b (b + 1) S_b (b S_b with
+    drop0) of each window by the host oracle. Among the buckets: O (alone
+    and at a window's ends), P and -P side by side, and two equal points
+    side by side, so that the first step adds a point to itself."""
+    curve = get_curve(cname)
+    nbuck, groups = 64, 2
+    rng = np.random.default_rng(11 + drop0)
+    G = H.aff_generator(curve)
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, groups * nbuck)]
+    for b in (0, 9, 10, 63, 64, 100, 127):
+        pts[b] = None
+    pts[5] = pts[6]
+    pts[70] = pts[71]
+    pts[30] = (pts[31][0], curve.p - pts[31][1])
+    rows = _steady_limbs(curve, pts, rng)
+    out = harness(cname)("bucket", groups * nbuck, nbuck, int(drop0), arrays=[rows])
+    got = out.reshape(3, curve.field.n_limbs, groups)
+    _canonical(curve, got, 1)
+    want = kernels.bucket_reduce_plain(
+        curve, torch.from_numpy(rows.astype(np.int64)).reshape(3, -1, groups, nbuck),
+        drop0).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want, 1)).all()
+    assert _affine_of(curve, got) == [
+        _host_sum(curve, [(b + (not drop0), pts[g * nbuck + b]) for b in range(nbuck)])
+        for g in range(groups)]
+
+
+@pytest.mark.parametrize("cname", CURVES)
+def test_horner_body_equals_plain(harness, cname):
+    """horner_lane at w = 4 over 5 window sums (one of them O), MSB first,
+    against horner_plain mod p, and sum_j 2^(4 (4 - j)) S_j by the host
+    oracle."""
+    curve = get_curve(cname)
+    w, nw = 4, 5
+    rng = np.random.default_rng(12)
+    G = H.aff_generator(curve)
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, nw)]
+    pts[2] = None
+    s_all = np.ascontiguousarray(np.moveaxis(_steady_limbs(curve, pts, rng), 2, 0))
+    got = harness(cname)("horner", 1, nw, w, arrays=[s_all])
+    got = got.reshape(3, curve.field.n_limbs, 1)
+    _canonical(curve, got, 1)
+    want = kernels.horner_plain(curve, torch.from_numpy(s_all.astype(np.int64)), w).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want[..., None], 1)).all()
+    assert _affine_of(curve, got) == [
+        _host_sum(curve, [(1 << (w * (nw - 1 - j)), pts[j]) for j in range(nw)])]
+
+
+# ---------------------------------------------------------------------------
 # the build and the bound
 # ---------------------------------------------------------------------------
 
 def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
-    """The four kernels on the layer include fe32.cuh and point32.cuh, and a
+    """The kernels on the layer include fe32.cuh and point32.cuh, and a
     change to an included header changes the library's build key."""
     for name in kernels.FE32_KERNELS:
         assert kernels.includes(kernels.KERNELS[name][0]) == ["fe32.cuh", "point32.cuh"]
@@ -637,7 +737,8 @@ def test_fe32_counts_and_constants(cname):
         assert k["N0"] * p % (1 << 32) == (1 << 32) - 1
     shapes = {"padd_chain": dict(repeat=16), "ladder": dict(T=2, nw=34, glv=bool(curve.glv)),
               "genmul": dict(nw=65),
-              "segscan": dict(C=64, adds=2000, ends=500, signed=True)}
+              "segscan": dict(C=64, adds=2000, ends=500, signed=True),
+              "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14)}
     assert set(shapes) == set(kernels.FE32_KERNELS)
     for name, kw in shapes.items():
         ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]

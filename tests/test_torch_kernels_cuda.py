@@ -1,8 +1,8 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
 Each kernel must equal its twin limb for limb (tolerance: exact), except
-the four on the 32-bit field layer (padd_chain, segscan, ladder, genmul),
-which store canonical values: each projective coordinate must equal the
+the six on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
+bucket_reduce, horner), which store canonical values: each projective coordinate must equal the
 twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
 run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
@@ -235,7 +235,9 @@ SHAPES = [(512, 32, 8, 2), (1 << 17, 8192, 14, 2)]
 def test_msm_phases_match_plain(dev, k256, shape, signed):
     """segscan, fixup and bucket_reduce on a real sorted window group, each
     against its twin on the same inputs: segscan by canonical coordinates
-    at its run-end rows, last_key exactly; the others limb for limb."""
+    at its run-end rows, last_key exactly; fixup limb for limb;
+    bucket_reduce (both drop0 values) by canonical coordinates, its own
+    limbs canonical."""
     from tpu_ecc_torch.parallel import msm as M
 
     N, L, w, windows = shape
@@ -258,15 +260,16 @@ def test_msm_phases_match_plain(dev, k256, shape, signed):
     for drop0 in (False, True):
         out = kernels.bucket_reduce(k256, buckets, drop0)
         torch.cuda.synchronize()
-        assert torch.equal(out, kernels.bucket_reduce_plain(k256, buckets, drop0))
+        _same_mod_p(k256, out, kernels.bucket_reduce_plain(k256, buckets, drop0))
 
 
 def test_horner_matches_plain(dev, k256):
-    """w = 14 over 19 window sums, MSB first (the signed 2^20-point MSM)."""
+    """w = 14 over 19 window sums, MSB first (the signed 2^20-point MSM):
+    equal mod p by canonical coordinates, the kernel's limbs canonical."""
     s_all = _points(k256, 21, 19, dev).permute(2, 0, 1).contiguous()
     out = kernels.horner(k256, s_all, 14)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.horner_plain(k256, s_all, 14))
+    _same_mod_p(k256, out, kernels.horner_plain(k256, s_all, 14))
 
 
 @pytest.mark.parametrize("n_points", [1 << 15, 4096])

@@ -1,7 +1,7 @@
 // point32.cuh: projective points on the 32-bit field layer (fe32.cuh), the
 // complete RCB 2015 formulas, and the per-lane bodies of the kernels that run
-// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu keep only the
-// launch).
+// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu, bucket_reduce.cu
+// and horner.cu keep only the launch).
 //
 // The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
 // add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
@@ -307,6 +307,18 @@ FE32_FN void put_point(const Pt<C>& p, uint32_t* __restrict__ dst, uint32_t stri
   }
 }
 
+// the point whose word j is at src[j * stride] (put_point's layout)
+template <class C>
+FE32_FN Pt<C> get_point(const uint32_t* __restrict__ src, uint32_t stride) {
+  Pt<C> p;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
+    p.x.w[i] = src[i * stride];
+    p.y.w[i] = src[(C::N + i) * stride];
+    p.z.w[i] = src[(2 * C::N + i) * stride];
+  }
+  return p;
+}
+
 // entry m in [0, 8] of the 9 points at tbl[(k 3N + j) * stride], as a
 // masked select over every entry: which words load does not depend on m,
 // so a secret digit shows in no address, branch or bank conflict
@@ -511,6 +523,68 @@ FE32_FN void genmul_lane(const uint32_t* __restrict__ ctab, const uint32_t* __re
     acc = pselect<C>(m == 0u, acc, padd_mixed<C>(acc, x, y));
   }
   store_point<C>(acc, out + lane, Bw);
+}
+
+// bucket_reduce's steps read and write the buckets as words [3N, len]
+// (put_point's layout, the bucket innermost) between launches; the first
+// step reads the 13-bit rows [3, NL, len] (ROWS), the last writes them.
+template <class C, bool ROWS>
+FE32_FN Pt<C> bucket_point(const uint32_t* __restrict__ src, uint32_t len) {
+  if constexpr (ROWS) {
+    return load_point<C>(src, len);
+  } else {
+    return get_point<C>(src, len);
+  }
+}
+
+// bucket_reduce's suffix step at shift s for bucket b of `total` (windows of
+// nbuck buckets side by side, nbuck a power of two): dst[b] = src[b] +
+// src[b + s] where b + s lies in b's window, else dst[b] = src[b]; src the
+// 13-bit rows (ROWS: the first step) or the words of the step before, dst
+// words. Bucket indices are public (Pippenger serves public sums): the
+// guard is a branch.
+template <class C, bool ROWS>
+FE32_FN void bucket_suffix_lane(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                                uint32_t s, uint32_t nbuck, uint32_t total, uint32_t b) {
+  Pt<C> v = bucket_point<C, ROWS>(src + b, total);
+  if ((b & (nbuck - 1)) + s < nbuck) v = padd<C>(v, bucket_point<C, ROWS>(src + b + s, total));
+  put_point<C>(v, dst + b, total);
+}
+
+// bucket_reduce's tree step over len = groups * width words' points:
+// dst[t] = src[2t] + src[2t + 1]. zero0 (drop0, in the first step, width =
+// nbuck): each window's bucket 0 reads as O. dst: words [3N, len / 2], or
+// (ROWS: the last step) canonical 13-bit rows [3, NL, len / 2].
+template <class C, bool ROWS>
+FE32_FN void bucket_pair_lane(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                              uint32_t width, uint32_t len, bool zero0, uint32_t t) {
+  const uint32_t l = 2 * t;
+  const Pt<C> a = zero0 && (l & (width - 1)) == 0 ? identity<C>() : get_point<C>(src + l, len);
+  const Pt<C> r = padd<C>(a, get_point<C>(src + l + 1, len));
+  if constexpr (ROWS) {
+    store_point<C>(r, dst + t, len / 2);
+  } else {
+    put_point<C>(r, dst + t, len / 2);
+  }
+}
+
+// horner: acc = 2^w acc + S_win over the window sums s_all [nw, 3, NL]
+// (13-bit rows, MSB window first) from acc = O, to out [3, NL], canonical.
+template <class C>
+FE32_FN void horner_lane(const uint32_t* __restrict__ s_all, uint32_t* __restrict__ out, int nw,
+                         int w) {
+  Pt<C> acc = identity<C>();
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int win = 0; win < nw; ++win) {
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int d = 0; d < w; ++d) acc = pdouble<C>(acc);
+    acc = padd<C>(acc, load_point<C>(s_all + (uint32_t)win * 3 * C::NL, 1u));
+  }
+  store_point<C>(acc, out, 1u);
 }
 
 }  // namespace fe32

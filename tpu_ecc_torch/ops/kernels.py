@@ -25,17 +25,18 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Four of them, `padd_chain`, `segscan`, `ladder`
-and `genmul` (FE32_KERNELS), run on the hand-written 32-bit field layer
-(csrc/fe32.cuh, csrc/point32.cuh): they convert their 13-bit rows to 8
-words a coordinate on load, keep the point in registers, and store
-canonical 13-bit limbs; their generated header holds only the curve's
-constants (`kfe.fe32_header`, with the GLV beta where the curve has an
-endomorphism). `ladder` builds its tables [O, Q, .., 8Q] in shared memory
-(`ladder_lanes`), `genmul` converts the comb into shared memory once a
-block. The others call straight-line field and point functions that
-ops/kfe.py generates from the KFE bound ledger into a header per (target,
-kernel). A target is a curve (the a = 0 formulas for secp256k1, the a = -3
+[.., n, B] uint32 arrays. Six of them, `padd_chain`, `segscan`, `ladder`,
+`genmul`, `bucket_reduce` and `horner` (FE32_KERNELS), run on the
+hand-written 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh): they
+convert their 13-bit rows to 8 words a coordinate on load, keep the point
+in registers, and store canonical 13-bit limbs; their generated header
+holds only the curve's constants (`kfe.fe32_header`, with the GLV beta
+where the curve has an endomorphism). `ladder` builds its tables [O, Q,
+.., 8Q] in shared memory (`ladder_lanes`), `genmul` converts the comb into
+shared memory once a block, `bucket_reduce` keeps the buckets as words in
+its scratch between its steps. The others call straight-line field and
+point functions that ops/kfe.py generates from the KFE bound ledger into a
+header per (target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the a = -3
 ones for P-256 and the other a = -3 curves), a bare field spec
 (`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
 None (`dma_gather`, which has no generated header). The
@@ -49,7 +50,7 @@ Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the four kernels
+so a kernel's output equals its twin's limb for limb; for the six kernels
 on the 32-bit layer, each projective coordinate equals the twin's mod p
 (the same formulas in the same order; the limb plan differs, and the
 kernels store canonical values), and `segscan` writes only the run-end
@@ -117,10 +118,10 @@ KERNELS = {
     "fixup": ("fixup.cu", ("padd",), "fixup_launch",
               [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I],
               "tpu_ecc/ops/pallas_kernels.py:647"),
-    "bucket_reduce": ("bucket_reduce.cu", ("padd",), "bucket_reduce_launch",
+    "bucket_reduce": ("bucket_reduce.cu", (), "bucket_reduce_launch",
                       [_VP, _VP, _VP, _I, _I, _I],
                       "tpu_ecc/ops/pallas_kernels.py:733"),
-    "horner": ("horner.cu", ("padd", "pdouble"), "horner_launch",
+    "horner": ("horner.cu", (), "horner_launch",
                [_VP, _VP, _I, _I], "tpu_ecc/ops/pallas_kernels.py:814"),
     "dma_gather": ("dma_gather.cu", (), "dma_gather_launch",
                    [_VP, _VP, _VP, _I, _I, _I, _I, _I],
@@ -135,7 +136,7 @@ KERNELS = {
                      "tools/profile_ladder.py:72"),
 }
 
-FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul")
+FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul", "bucket_reduce", "horner")
 """The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -695,7 +696,10 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, drop0: bool) -> torch
     last axis; nbuck a power of two >= 2; leading axes are independent
     windows): a guarded suffix scan, bucket 0 dropped with `drop0`, then
     lane 0 of a circular all-reduce, as a pairwise tree -> int32 [3, n, *w].
-    2 * log2(nbuck) launches."""
+    2 * log2(nbuck) launches. The kernel (on the 32-bit layer) keeps the
+    buckets as canonical words between its steps, in a scratch of 2 * 3N
+    words a bucket, and returns each coordinate canonical: equal mod p to
+    the twin's."""
     nbuck = buckets.shape[-1]
     if nbuck < 2 or nbuck & (nbuck - 1):
         raise ValueError(f"bucket_reduce: nbuck must be a power of two >= 2, got {nbuck}")
@@ -707,7 +711,9 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, drop0: bool) -> torch
     b32 = _u32(buckets)
     groups = b32[0, 0].numel() // nbuck
     out = torch.empty((3, n, *wins), dtype=torch.int32, device=buckets.device)
-    buf = torch.empty((2, *b32.shape), dtype=torch.int32, device=buckets.device)
+    _check_words(b32, "bucket_reduce buckets")   # the scratch is smaller
+    buf = torch.empty((2, 3 * kfe.FE32_N, groups * nbuck), dtype=torch.int32,
+                      device=buckets.device)
     _launch("bucket_reduce", curve, buckets.device, b32.data_ptr(), out.data_ptr(),
             buf.data_ptr(), nbuck, groups, int(drop0))
     return out
@@ -724,7 +730,9 @@ def bucket_reduce_plain(curve: CurveSpec, buckets: torch.Tensor,
 
 def horner(curve: CurveSpec, s_all: torch.Tensor, w: int) -> torch.Tensor:
     """acc = 2^w * acc + S_j over the window sums s_all [nw, 3, n], MSB
-    window first, from acc = O -> int32 [3, n]. One thread."""
+    window first, from acc = O -> int32 [3, n]. One thread (on the 32-bit
+    layer), whose result is canonical: each coordinate equal mod p to the
+    twin's."""
     if s_all.device.type == "cpu":
         return horner_plain(curve, s_all, w)
     nw = s_all.shape[0]
@@ -1073,14 +1081,20 @@ def work(name: str, target, B: int, design: str = "kfe", **kw) -> tuple:
     if name == "fixup":
         return _total((kw["adds"] + B, c["padd"])), (3 * pn + 2) * 4 * B
     if name == "bucket_reduce":
-        G, steps = kw["groups"], B.bit_length() - 1
-        adds = G * (sum(B - (1 << k) for k in range(steps)) + B - 1)
-        return _total((adds, c["padd"])), pn * 4 * G * (B + 1)
+        G = kw["groups"]
+        return _total((_bucket_adds(G, B), c["padd"])), pn * 4 * G * (B + 1)
     if name == "horner":
         nw, w = kw["nw"], kw["w"]
         return (_total((nw * w, c["pdouble"]), (nw, c["padd"])),
                 (nw + 1) * pn * 4)
     raise KeyError(name)
+
+
+def _bucket_adds(groups: int, nbuck: int) -> int:
+    """bucket_reduce's adds: (nbuck - s) a window at each suffix step s,
+    nbuck - 1 a window in the tree."""
+    steps = nbuck.bit_length() - 1
+    return groups * (sum(nbuck - (1 << k) for k in range(steps)) + nbuck - 1)
 
 
 def _segscan_bytes(pn: int, B: int, C: int, ends: int, signed: bool, **_) -> int:
@@ -1133,4 +1147,17 @@ def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
                     (nw * B, c["cneg"]), (nw * B, c["padd_mixed"]), (nw * B, c["pselect"]),
                     (3 * B, c["store"]))
         return ops, nw * TBL * 2 * (pn // 3) * 4 + (2 * nw + pn) * 4 * B
+    if name == "bucket_reduce":
+        # the first step loads every bucket and, for the buckets whose
+        # partner is in their window, the partner; the last stores one
+        # point a window
+        G = kw["groups"]
+        ops = total((_bucket_adds(G, B), c["padd"]), (3 * G * (2 * B - 1), c["load"]),
+                    (3 * G, c["store"]))
+        return ops, pn * 4 * G * (B + 1)
+    if name == "horner":
+        nw, w = kw["nw"], kw["w"]
+        ops = total((nw * w, c["pdouble"]), (nw, c["padd"]), (3 * nw, c["load"]),
+                    (3, c["store"]))
+        return ops, (nw + 1) * pn * 4
     raise KeyError(f"{name} does not run on the 32-bit layer")
