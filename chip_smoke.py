@@ -10,18 +10,20 @@
    secp256k1 forced onto Montgomery, k256mxu.fp; mxu_chain for the two
    Montgomery fields; ladder_probe for secp256k1); then the native signing
    code (g++). Prints the seconds it took and ptxas's registers and stack
-   for each. The kernels on the 32-bit field layer (padd_chain, ladder and
-   genmul for both curves, segscan, bucket_reduce, horner) must show 0
-   bytes of spill stores and loads; for each, the instructions of its loop
-   bodies in the built SASS (cuobjdump -sass; bucket_reduce's tree step,
-   which has no loop, whole), by class, print beside the count of
+   for each. The kernels on the 32-bit field layer (padd_chain, ladder,
+   genmul and pow for both curves, pow on both fields; segscan, fixup,
+   bucket_reduce, horner) must show 0 bytes of spill stores and loads; for
+   each, the instructions of its loop bodies in the built SASS (cuobjdump
+   -sass; pow's for each field; bucket_reduce's tree step and fixup's
+   step, which have no loop, whole), by class, print beside the count of
    kernels.work's "fe32" design.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
    for the kernels on the 32-bit layer, which store canonical values, zero
-   difference between the canonical limbs of each projective coordinate,
-   segscan's `scanned` at its run-end rows only; each such hold prints its
-   warps a scheduler): padd_chain at B = 8192, repeat 16; pow on the scalar
+   difference between the canonical limbs of pow's element and of each
+   projective coordinate of the others, segscan's `scanned` at its run-end
+   rows only; each such hold prints its warps a scheduler): padd_chain at
+   B = 8192, repeat 16; pow on the scalar
    field (e = n - 2) and the base field (e = p - 2) at B = 4096; ladder with
    glv=True, T = 2 at B = 4096, with glv=False, T = 1 (65 windows), and at
    the Straus MSM's shape (T = 8 with GLV at the 512 lanes msm() gives 4096
@@ -59,9 +61,9 @@
    against their twins on the card at the shapes the first group of
    windows gives them (segscan signed and unsigned, fixup and
    bucket_reduce also at the last group's 3 windows, bucket_reduce with
-   and without drop0, horner on the 19 window sums; bucket_reduce and
-   horner by canonical coordinates, and horner's one-thread bound in both
-   designs' counts). Then `msm()`
+   and without drop0, horner on the 19 window sums; fixup, bucket_reduce
+   and horner by canonical coordinates, and horner's one-thread bound in
+   both designs' counts). Then `msm()`
    (signed, w = 14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one
    host `aff_mul`, with every phase kernel launched; the device core
    (packed tensors in, point out, closed by a synchronize) runs 5 times. A
@@ -198,6 +200,17 @@ def limb_diff(outs_k, outs_p) -> int:
     return max(_max_diff(a, b) for a, b in zip(outs_k, outs_p))
 
 
+def field_diff(spec):
+    """pow's hold: the largest difference between the canonical limbs of
+    the kernel's element and the twin's."""
+    from tpu_ecc_torch.ops import fe as F
+
+    def canon(t):
+        return F.fcanonical(F.fe_steady(spec, t.to(torch.int64))).limbs
+
+    return lambda outs_k, outs_p: _max_diff(canon(outs_k[0]), canon(outs_p[0]))
+
+
 def coord_diff(curve):
     """padd_chain's hold: the largest difference between the canonical limbs
     of each projective coordinate."""
@@ -259,20 +272,26 @@ def sass_class(op: str) -> str:
     return "control"
 
 
-SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E", "ladder_mont_kernel"),
-                 "bucket_reduce": ("bucket_reduce_pair_kernelILb0E",)}
+SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E|ladder_mont_kernel",),
+                 "bucket_reduce": ("bucket_reduce_pair_kernelILb0E",),
+                 "pow": ("pow_kernelI7Curve32E", "pow_kernelI8Scalar32E"),
+                 "fixup": ("fixup_step_kernelILb0E",)}
 """The functions whose SASS `sass_loop_counts` reads, where they are not
-`<kernel>_kernel`: the ladder's instance for full blocks, one a build
-(csrc/ladder.cu); bucket_reduce's tree step from words to words, one add."""
+`<kernel>_kernel`, each of them in every build ("a|b": a in one build, b in
+another): the ladder's instance for full blocks (csrc/ladder.cu: the
+solinas or the Montgomery form); bucket_reduce's tree step from words to
+words, one add; pow's instance for each field; fixup's step from words to
+words, one add."""
 
 
-def sass_loop_counts(so: str, kernel: str) -> list:
-    """The instructions of each loop body of `kernel` (its function, or
-    SASS_FUNCTION's) in the library `so` (cuobjdump -sass: the span from a
-    backward branch's target to the branch, not counting the branch to
-    itself that ends every function), by sass_class, the largest
-    first (an outer loop's count holds its inner loops'); of the whole
-    function where it has no loop."""
+def sass_loop_counts(so: str, function: str) -> list:
+    """The instructions of each loop body of the function whose (mangled)
+    name holds `function` in the library `so` (cuobjdump -sass: the span
+    from a backward branch's target to the branch, not counting the branch
+    to itself that ends every function), by sass_class, the largest first
+    (an outer loop's count holds its inner loops'); of the whole function
+    where it has no loop. `function` may name alternatives, "a|b"; raises
+    where the library has no function of that name."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
@@ -280,7 +299,7 @@ def sass_loop_counts(so: str, kernel: str) -> list:
     for ln in text.splitlines():
         s = ln.strip()
         if "Function :" in s:
-            inside = any(f in s for f in SASS_FUNCTION.get(kernel, (f"{kernel}_kernel",)))
+            inside = any(f in s for f in function.split("|"))
             continue
         if not inside:
             continue
@@ -296,6 +315,8 @@ def sass_loop_counts(so: str, kernel: str) -> list:
             words = m.group(2).split()
             op = words[1] if words[0].startswith("@") else words[0]
             insts.append((addr, op, m.group(2)))
+    if not insts:
+        raise ValueError(f"{so}: no function named {function}")
     loops = []
     for addr, op, body in insts:
         if op.startswith("BRA"):
@@ -305,7 +326,7 @@ def sass_loop_counts(so: str, kernel: str) -> list:
             if target is not None and target < addr:   # not the trailing self-branch
                 loops.append((target, addr))
     bodies = []
-    if not loops and insts:
+    if not loops:
         loops = [(insts[0][0], insts[-1][0])]
     for lo, hi in sorted(set(loops), key=lambda t: t[0] - t[1]):
         counts = {}
@@ -729,7 +750,10 @@ def main() -> int:
         model = kfe.fe32_counts(c)
         print(f"  fe32 count, {c.name}: " + ", ".join(
             f"{f} {model[f]}" for f in ("padd", "padd_mixed", "pdouble", "select_point",
-                                        "select_affine", "cneg", "load", "store")))
+                                        "select_affine", "cneg", "mul", "sqr", "load",
+                                        "store"))
+            + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
+            + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
     for c, name in [(c, n) for c in curves for n in K.FE32_KERNELS
                     if (c, n) in targets]:
         so = K._target(name, c)[0]
@@ -739,7 +763,9 @@ def main() -> int:
         if not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
                             for ln in stack.split(" | ")):
             raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
-        print(f"    SASS loop bodies by class, largest first: {sass_loop_counts(so, name)}")
+        for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
+            print(f"    SASS loop bodies of {fn} by class, largest first: "
+                  f"{sass_loop_counts(so, fn)}")
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
@@ -792,7 +818,7 @@ def main() -> int:
             cores = op_seconds({**ops, "int8": 0}, clock_hz)
             extra += (f" (CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
                       f"{1e3 * ops['int8'] / INT8_OPS_PER_S:.4f} ms)")
-        same = "limb-equal" if compare is limb_diff else "equal mod p by canonical coordinates"
+        same = "limb-equal" if compare is limb_diff else "equal mod p by canonical values"
         if block is not None:
             lanes = outs_k[0].shape[-1] if B is None else B
             warps = -(-lanes // block) * -(-block // 32)
@@ -820,7 +846,7 @@ def main() -> int:
         e = spec.p - 2
         hold("pow", f"{spec.name} e=p-2 B=4096",
              lambda: K.fpow(spec, x, e), lambda: K.fpow_plain(spec, x, e), 10,
-             field=field, e=e)
+             compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)
 
     Qs, _ = _points(curve, 4, 4096, dev)
     Q = P.point_from_limbs(curve, Qs)
@@ -878,7 +904,7 @@ def main() -> int:
         e = spec.p - 2
         hold("pow", f"{spec.name} e=p-2 B=4096",
              lambda: K.fpow(spec, x, e), lambda: K.fpow_plain(spec, x, e), 10,
-             c=p256, field=field, e=e)
+             c=p256, compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)
     Qs, _ = _points(p256, 4, 4096, dev)
     ks = [SM.pack_scalars(p256, [int.from_bytes(rng.bytes(32), "big")
                                  for _ in range(4096)], dev) for _ in range(2)]
@@ -955,12 +981,12 @@ def main() -> int:
     hold("fixup", f"lanes={per}x{MSM_LANES}",
          lambda: K.fixup(curve, tail, last_key, key2[0], lead),
          lambda: K.fixup_plain(curve, tail, last_key, key2[0], lead), 5, B=lanes,
-         adds=fix_adds(last_key))
+         compare=coord_diff(curve), block=K.FIXUP_LANES, adds=fix_adds(last_key))
     # the last group's 3 windows
     t3, lk3, fk3, ld3 = (x[..., :3, :].contiguous() for x in (tail, last_key, key2[0], lead))
     hold("fixup", f"lanes=3x{MSM_LANES}", lambda: K.fixup(curve, t3, lk3, fk3, ld3),
          lambda: K.fixup_plain(curve, t3, lk3, fk3, ld3), 5, B=3 * MSM_LANES,
-         adds=fix_adds(lk3))
+         compare=coord_diff(curve), block=K.FIXUP_LANES, adds=fix_adds(lk3))
     fixed = K.fixup(curve, tail, last_key, key2[0], lead)
     buckets = M.bucket_lookup(curve, skey, scanned, fixed, key2[0], nbuck)
     for drop0 in (False, True):          # False: the signed path's

@@ -1,8 +1,11 @@
 """The 32-bit field layer (tpu_ecc_torch/csrc/fe32.cuh, point32.cuh) and the
-per-lane bodies of the four kernels that run on it, `padd_chain`,
-`segscan`, `ladder` and `genmul`, built with g++ into one host harness per
-curve (secp256k1: a = 0, solinas fold, GLV beta; P-256: a = -3, Montgomery
-CIOS with the domain maps to and from the 13-bit plan's R).
+per-lane bodies of the eight kernels that run on it, `padd_chain`,
+`segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`, `pow` and
+`fixup`, built with g++ into one host harness per curve (secp256k1: a = 0,
+solinas fold, GLV beta; P-256: a = -3, Montgomery CIOS with the domain
+maps to and from the 13-bit plan's R; each curve's scalar field,
+Montgomery with N0 != 1, as the traits Scalar32; the pow body also on
+bign256's base field and sm2's scalar field).
 
 Inputs are made from a numpy seed (and the host oracle's points). Tolerance:
 exact. The field operations and both boundary converters equal Python ints;
@@ -12,10 +15,13 @@ the port's plain ones and the host oracle; the chain body equals
 `padd_chain_plain`, the segscan body `segscan_plain` mod p at the run-end
 rows that the kernel writes, the ladder body `ladder_plain` (its tables in a
 buffer shared by blocks of lanes, as the kernel's shared memory) and the
-genmul body (the comb converted by its prologue) `genmul_plain`. Every value
-the harness returns is canonical.
+genmul body (the comb converted by its prologue) `genmul_plain`, the
+bucket_reduce and fixup steps (run as their launches run them)
+`bucket_reduce_plain` and `fixup_plain`, the horner body `horner_plain` and
+the pow body `fpow_plain` and Python's pow, on both fields. Every value the
+harness returns is canonical.
 
-Budget: 100 s for the file at one process (about 55 s: two g++ builds at
+Budget: 100 s for the file at one process (58-76 s: two g++ builds at
 -O0 of about 2 s each, and six small XLA:CPU programs, which take most of
 it).
 """
@@ -34,7 +40,7 @@ import torch
 from tpu_ecc.curves.specs import get_curve as j_curve
 from tpu_ecc.ops import fe as JF
 from tpu_ecc.ops import points as JP
-from tpu_ecc_torch.curves.specs import get_curve
+from tpu_ecc_torch.curves.specs import get_curve, list_curves
 from tpu_ecc_torch.ops import fe as F
 from tpu_ecc_torch.ops import kernels
 from tpu_ecc_torch.ops import kfe
@@ -70,6 +76,16 @@ static E<C> el(const uint32_t* p) {
 }
 static void put(V& out, size_t l, const E<C>& x) {
   for (int i = 0; i < C::N; ++i) out[l * C::N + i] = x.w[i];
+}
+// pow on field T (Curve32 or Scalar32): x [NL, B], digits [ndig] -> out;
+// blocks of TL lanes share a table buffer, as the kernel's shared memory
+template <class T>
+static void run_pow(size_t n, int ndig, size_t TL) {
+  V x = rd(T::NL * n), dig = rd(ndig), out(T::NL * n), tbl(15 * T::N * TL, 0xFFFFFFFFu);
+  for (size_t l = 0; l < n; ++l)
+    pow_lane<T>(x.data(), out.data(), &tbl[l % TL], (uint32_t)TL, dig.data(), ndig, (int)n,
+                (int)l);
+  wr(out);
 }
 // harness <mode> <lanes> [args]: uint32 arrays in on stdin, out on stdout
 int main(int argc, char** argv) {
@@ -153,6 +169,32 @@ int main(int argc, char** argv) {
       }
       src = dst;
     }
+    wr(out);
+    return 0;
+  }
+  if (!strcmp(m, "pow")) {  // pow B field ndig TL
+    const int field = atoi(argv[3]), ndig = atoi(argv[4]);
+    const size_t TL = (size_t)atoi(argv[5]);
+    if (field == 0) run_pow<Curve32>(n, ndig, TL);
+    else run_pow<Scalar32>(n, ndig, TL);
+    return 0;
+  }
+  if (!strcmp(m, "fixup")) {  // fixup lanes L: t_l, last_key, first_key, lead -> out
+    const uint32_t L = (uint32_t)atoi(argv[3]), lanes = (uint32_t)n;
+    V t = rd(PN * n), lk = rd(n), fk = rd(n), lead = rd(PN * n), out(PN * n);
+    V bufs[2] = {V(3 * N * n, 0xFFFFFFFFu), V(3 * N * n, 0xFFFFFFFFu)};
+    const uint32_t* src = t.data();
+    int k = 0;
+    for (uint32_t s = 1; s < L; s *= 2, ++k) {  // the launch's steps
+      uint32_t* dst = bufs[k & 1].data();
+      for (uint32_t l = 0; l < lanes; ++l) {
+        if (s == 1) fixup_step_lane<C, true>(src, dst, lk.data(), s, L, lanes, l);
+        else fixup_step_lane<C, false>(src, dst, lk.data(), s, L, lanes, l);
+      }
+      src = dst;
+    }
+    for (uint32_t l = 0; l < lanes; ++l)
+      fixup_final_lane<C>(src, lk.data(), fk.data(), lead.data(), out.data(), L, lanes, l);
     wr(out);
     return 0;
   }
@@ -693,6 +735,125 @@ def test_horner_body_equals_plain(harness, cname):
 
 
 # ---------------------------------------------------------------------------
+# the pow and fixup bodies
+# ---------------------------------------------------------------------------
+
+# both fields of both curves, and a field of each other curve that pow now
+# builds for: bign256's base field (solinas, F = 189 in one word) and sm2's
+# scalar field
+POW_CASES = [(c, f) for c in CURVES for f in ("fp", "fn")] + [("bign256", "fp"), ("sm2", "fn")]
+
+
+@pytest.mark.parametrize("cname,field", POW_CASES, ids=[f"{c}-{f}" for c, f in POW_CASES])
+def test_pow_body_equals_plain(harness, cname, field):
+    """pow_lane on 64 lanes (0, 1, p - 1 and random, each a random steady
+    representative of its encoding), in blocks of 4 lanes sharing a table
+    buffer as the kernel's shared memory, with e = p - 2 and, on the base
+    field (p = 3 mod 4 on each curve here), e = (p + 1) / 4: against
+    kernels.fpow_plain mod p and Python's pow. The scalar field runs on
+    Scalar32 (Montgomery, N0 != 1)."""
+    curve = get_curve(cname)
+    spec = curve.field if field == "fp" else curve.scalar
+    p, lanes = spec.p, 64
+    rng = np.random.default_rng(13)
+    xs = [0, 1, p - 1] + [int.from_bytes(rng.bytes(40), "big") % p for _ in range(lanes - 3)]
+    top = _steady_top(spec)
+    enc = [spec.encode_int(v) for v in xs]
+    reps = [v + int(rng.integers(0, (top - v) // p + 1)) * p for v in enc]
+    x = ints_to_limbs_np(reps, spec.n_limbs, spec.limb_bits)        # [n, lanes]
+    r13 = spec.W if spec.kind == "mont" else 1
+    exps = [p - 2] + ([(p + 1) // 4] if field == "fp" else [])
+    assert p % 4 == 3 or field == "fn"
+    for e in exps:
+        digits = np.array(kernels.exponent_digits(e), np.uint32)
+        got = harness(cname)("pow", lanes, int(field == "fn"), len(digits), 4,
+                             arrays=[x, digits]).reshape(spec.n_limbs, lanes)
+        assert int(got.max()) <= spec.mask
+        vals = _limb_ints(got, spec.limb_bits, 0)
+        assert (vals < p).all()
+        want = kernels.fpow_plain(spec, torch.from_numpy(x.astype(np.int64)), e).numpy()
+        assert list(vals) == list(_limb_ints(want, spec.limb_bits, 0) % p)
+        assert [v * pow(r13, -1, p) % p for v in vals] == [pow(v, e, p) for v in xs]
+
+
+def _fixup_inputs(curve, L, rng):
+    """Two windows of L lanes: the keys (sorted in each window; runs that
+    cross several lanes, one of about 15 lanes; window 1 starts at window
+    0's last key, a run the scan must stop at the window's start) and the
+    affine tails and leads (None for O; a tail beside its negation and two
+    equal tails in one run, so that an add doubles)."""
+    G = H.aff_generator(curve)
+    keys, start = [], 0
+    for _ in range(2):
+        ks = np.sort(np.concatenate([rng.integers(0, 24, 2 * L - 34), np.full(30, 11),
+                                     np.zeros(4, np.int64)])) + start
+        keys.append(ks)
+        start = int(ks[-1])
+    keys = np.stack(keys)                                   # [2, 2L]: lane l's rows 2l, 2l + 1
+    first_key, last_key = keys[:, 0::2], keys[:, 1::2]
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, 4 * L)]
+    tails, leads = pts[:2 * L], pts[2 * L:]
+    run = [l for l in range(1, L) if last_key[0, l] == last_key[0, l - 1]]
+    neg, eq = run[1], run[-1]
+    tails[neg] = (tails[neg - 1][0], curve.p - tails[neg - 1][1])
+    tails[eq] = tails[eq - 1]
+    for i in {0, 7, 30, 64, 100} - {neg - 1, neg, eq - 1, eq}:
+        tails[i] = None
+    leads[3] = leads[70] = None
+    return first_key, last_key, tails, leads
+
+
+def _fixup_host(curve, first_key, last_key, tails, leads, L):
+    """lead[l] + T[l - 1] where the key continues, T the sum of the tails of
+    l's run up to l within its window, by the host oracle."""
+    out = []
+    for w in range(first_key.shape[0]):
+        T = []
+        for i in range(L):
+            same = i > 0 and last_key[w, i] == last_key[w, i - 1]
+            T.append(H.aff_add(curve, T[-1], tails[w * L + i]) if same else tails[w * L + i])
+        for i in range(L):
+            carry = T[i - 1] if i > 0 and first_key[w, i] == last_key[w, i - 1] else None
+            out.append(H.aff_add(curve, leads[w * L + i], carry))
+    return out
+
+
+@pytest.mark.parametrize("cname", CURVES)
+def test_fixup_body_equals_plain(harness, cname):
+    """fixup_step_lane (6 steps) and fixup_final_lane as the launch runs
+    them, on 2 windows of 64 lanes, against kernels.fixup_plain coordinate
+    by coordinate mod p, and the fixed lanes by the host oracle; then
+    windows of one lane (L = 1, the last launch alone)."""
+    curve = get_curve(cname)
+    L = 64
+    rng = np.random.default_rng(14)
+    first_key, last_key, tails, leads = _fixup_inputs(curve, L, rng)
+    t_l, lead = _steady_limbs(curve, tails, rng), _steady_limbs(curve, leads, rng)
+    out = harness(cname)("fixup", 2 * L, L, arrays=[t_l, last_key, first_key, lead])
+    got = out.reshape(3, curve.field.n_limbs, 2 * L)
+    _canonical(curve, got, 1)
+    n = curve.field.n_limbs
+    want = kernels.fixup_plain(
+        curve, torch.from_numpy(t_l.astype(np.int32)).reshape(3, n, 2, L),
+        torch.from_numpy(last_key.astype(np.int32)), torch.from_numpy(first_key.astype(np.int32)),
+        torch.from_numpy(lead.astype(np.int32)).reshape(3, n, 2, L)).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want.reshape(got.shape), 1)).all()
+    assert _affine_of(curve, got) == _fixup_host(curve, first_key, last_key, tails, leads, L)
+    assert last_key[1, 0] == last_key[0, -1]           # a key the scan must not carry over
+    # L = 1: no step, the last launch alone; every lane adds O to its lead
+    w = 6
+    got1 = harness(cname)("fixup", w, 1, arrays=[t_l[..., :w], last_key[0, :w], first_key[0, :w],
+                                                 lead[..., :w]]).reshape(3, n, w)
+    want1 = kernels.fixup_plain(
+        curve, torch.from_numpy(t_l[..., :w].astype(np.int32)).reshape(3, n, w, 1),
+        torch.from_numpy(last_key[0, :w].astype(np.int32)).reshape(w, 1),
+        torch.from_numpy(first_key[0, :w].astype(np.int32)).reshape(w, 1),
+        torch.from_numpy(lead[..., :w].astype(np.int32)).reshape(3, n, w, 1)).numpy()
+    assert (_mod_p(curve, got1, 1) == _mod_p(curve, want1.reshape(got1.shape), 1)).all()
+    assert _affine_of(curve, got1) == leads[:w]
+
+
+# ---------------------------------------------------------------------------
 # the build and the bound
 # ---------------------------------------------------------------------------
 
@@ -719,7 +880,10 @@ def test_fe32_counts_and_constants(cname):
     """The 32-bit design counts fewer instructions than the 13-bit one
     (kernels.work's two designs) for each kernel on the layer; the header's
     constants are the curve's, beta among them where the curve has an
-    endomorphism, and the domain maps compose to the identity."""
+    endomorphism, and the domain maps compose to the identity; Scalar32's
+    (the scalar field, Montgomery) N0, one and maps against Python ints,
+    and its field count has CIOS's N0 multiply; a squaring is counted at
+    the N(N+1)/2 products it needs, the reduction as a multiply's."""
     curve = get_curve(cname)
     k = kfe.fe32_constants(curve)
     p = curve.p
@@ -735,10 +899,22 @@ def test_fe32_counts_and_constants(cname):
         inv = pow(r32, -1, p)
         assert to32 * inv * to13 * inv % p == 1     # store(load(v)) = v
         assert k["N0"] * p % (1 << 32) == (1 << 32) - 1
+    n = curve.scalar
+    s = kfe.fe32_field_constants(n)
+    assert "struct Scalar32" in kfe.fe32_header(curve) and s["MONT"]
+    assert sum(w << (32 * i) for i, w in enumerate(s["p"])) == n.p
+    assert s["N0"] * n.p % (1 << 32) == (1 << 32) - 1 and s["N0"] != 1
+    R = 1 << (32 * kfe.FE32_N)                              # R32; R13 = n.W
+    to32 = sum(w << (32 * i) for i, w in enumerate(s["to32"]))
+    to13 = sum(w << (32 * i) for i, w in enumerate(s["to13"]))
+    assert to32 * pow(R, -1, n.p) % n.p == R * pow(n.W, -1, n.p) % n.p   # v R13 -> v R32
+    assert to13 == n.W % n.p                                # x R32 -> x R13
+    assert sum(w << (32 * i) for i, w in enumerate(s["one"])) == R % n.p
     shapes = {"padd_chain": dict(repeat=16), "ladder": dict(T=2, nw=34, glv=bool(curve.glv)),
               "genmul": dict(nw=65),
               "segscan": dict(C=64, adds=2000, ends=500, signed=True),
-              "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14)}
+              "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14),
+              "pow": dict(field=1, e=n.p - 2), "fixup": dict(adds=300)}
     assert set(shapes) == set(kernels.FE32_KERNELS)
     for name, kw in shapes.items():
         ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]
@@ -747,6 +923,12 @@ def test_fe32_counts_and_constants(cname):
     c = kfe.fe32_counts(curve)
     assert sum(c["pdouble"].values()) < sum(c["padd_mixed"].values()) < sum(c["padd"].values())
     assert c["mul_beta"] == c["mul"]
+    cn = kfe.fe32_counts(n)
+    assert set(cn) == {"add", "sub", "neg", "mul", "sqr", "load", "store"}
+    assert cn["mul"]["imad"] == cn["sqr"]["imad"] == kfe.FE32_N   # CIOS's m = t0 N0, once a word
+    N = kfe.FE32_N
+    for counts in (c, cn):                 # a squaring's N(N+1)/2 products against N^2
+        assert counts["sqr"]["wide"] == counts["mul"]["wide"] - N * (N - 1) // 2
     with pytest.raises(NotImplementedError):
         kfe.fe32_constants(get_curve("bp256r1"))
 
@@ -771,6 +953,44 @@ def test_padd_count_follows_point32(tmp_path, monkeypatch):
     assert ops("padd", "a0") == {"mul": 13, "mul_b": 2, "add": 14, "sub": 5}
     assert ops("padd", "a_minus3")["mul"] == 12
     assert ops("padd_mixed", "a0")["mul"] == 11
+
+
+# the curves whose two fields the layer takes at 8 words; `pow` builds for
+# them alone (the others' p has another width, or its 2^256 mod p is too wide)
+POW_CURVES = {"secp256k1", "p256", "sm2", "bign256"}
+
+
+@pytest.mark.parametrize("cname", list_curves())
+def test_pow_builds_for_the_fields_on_the_layer(cname):
+    """`pow`'s header needs only the curve's two fields: it builds for every
+    curve whose fields fit the layer, whatever its formulas, and `fpow`
+    raises NotImplementedError for the others before it touches a device
+    (a meta tensor: a field that fits gets as far as the CUDA check)."""
+    curve = get_curve(cname)
+    fits = not (kfe.fe32_fits(curve.field) or kfe.fe32_fits(curve.scalar))
+    assert fits == (cname in POW_CURVES)
+    x = torch.empty((curve.field.n_limbs, 4), dtype=torch.int64, device="meta")
+    if fits:
+        header = kernels._header("pow", curve)
+        assert "struct Curve32" in header and "struct Scalar32" in header
+        assert "A0" not in header and "bmul" not in header
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.fpow(curve.field, x, curve.p - 2)
+    else:
+        with pytest.raises(NotImplementedError):
+            kernels._header("pow", curve)
+        with pytest.raises(NotImplementedError, match="pow on the card"):
+            kernels.fpow(curve.field, x, curve.p - 2)
+
+
+@pytest.mark.parametrize("const,src,macro", [
+    ("POW_LANES", "pow.cu", "POW_THREADS"), ("FIXUP_LANES", "fixup.cu", "FIXUP_THREADS"),
+    ("GENMUL_LANES", "genmul.cu", "THREADS"), ("LADDER_LANES", "ladder.cu", "MAX_LANES")])
+def test_block_sizes_follow_the_sources(const, src, macro):
+    """The lanes a block that ops/kernels.py states (for its shared-memory
+    sizing and the smoke's warp counts) are the sources' defaults."""
+    text = (pathlib.Path(kernels.CSRC) / src).read_text()
+    assert f"#define {macro} {getattr(kernels, const)}\n" in text
 
 
 def test_ladder_lanes_follow_shared_memory():

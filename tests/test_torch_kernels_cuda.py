@@ -1,8 +1,9 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
 Each kernel must equal its twin limb for limb (tolerance: exact), except
-the six on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
-bucket_reduce, horner), which store canonical values: each projective coordinate must equal the
+the eight on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
+bucket_reduce, horner, pow, fixup), which store canonical values: pow's
+element and each projective coordinate of the others must equal the
 twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
 run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
@@ -110,6 +111,8 @@ def test_padd_chain_matches_plain(dev, name):
 @pytest.mark.parametrize("name", CURVES)
 @pytest.mark.parametrize("field", ["fp", "fn"])
 def test_pow_matches_plain(dev, name, field):
+    """Equal mod p by canonical limbs (the 32-bit layer, Scalar32 for the
+    scalar field), the kernel's own limbs canonical, and x^-1 by Python."""
     curve = get_curve(name)
     spec = curve.field if field == "fp" else curve.scalar
     rng = np.random.default_rng(3)
@@ -117,8 +120,26 @@ def test_pow_matches_plain(dev, name, field):
     x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
     out = kernels.fpow(spec, x, spec.p - 2)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.fpow_plain(spec, x, spec.p - 2))
+
+    def canonical(limbs):
+        return F.fcanonical(F.fe_steady(spec, limbs.to(torch.int64))).limbs
+
+    assert torch.equal(canonical(out), out.to(torch.int64))
+    assert torch.equal(canonical(out), canonical(kernels.fpow_plain(spec, x, spec.p - 2)))
     assert F.fe_to_ints(F.fe_steady(spec, out)) == [pow(v, -1, spec.p) for v in xs]
+
+
+@pytest.mark.parametrize("name", ["p384", "bp256r1"])
+def test_pow_refuses_fields_off_the_layer(dev, name):
+    """A curve whose fields the 32-bit layer cannot take (P-384: 384 bits;
+    bp256r1: 2^256 mod p too wide) has no pow on the card: the wrapper
+    raises NotImplementedError and launches nothing."""
+    curve = get_curve(name)
+    x = F.fsteady(F.fe_from_ints(curve.field, [2, 3], dev)).limbs
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError, match="pow on the card"):
+        kernels.fpow(curve.field, x, curve.p - 2)
+    assert kernels.launches["pow"] == 0
 
 
 def _same_mod_p(curve, out, want):
@@ -235,9 +256,8 @@ SHAPES = [(512, 32, 8, 2), (1 << 17, 8192, 14, 2)]
 def test_msm_phases_match_plain(dev, k256, shape, signed):
     """segscan, fixup and bucket_reduce on a real sorted window group, each
     against its twin on the same inputs: segscan by canonical coordinates
-    at its run-end rows, last_key exactly; fixup limb for limb;
-    bucket_reduce (both drop0 values) by canonical coordinates, its own
-    limbs canonical."""
+    at its run-end rows, last_key exactly; fixup and bucket_reduce (both
+    drop0 values) by canonical coordinates, their own limbs canonical."""
     from tpu_ecc_torch.parallel import msm as M
 
     N, L, w, windows = shape
@@ -255,12 +275,24 @@ def test_msm_phases_match_plain(dev, k256, shape, signed):
     scanned, last_key, tail, lead = want
     fixed = kernels.fixup(k256, tail, last_key, key2[0], lead)
     torch.cuda.synchronize()
-    assert torch.equal(fixed, kernels.fixup_plain(k256, tail, last_key, key2[0], lead))
+    _same_mod_p(k256, fixed, kernels.fixup_plain(k256, tail, last_key, key2[0], lead))
     buckets = M.bucket_lookup(k256, skey, scanned, fixed, key2[0], nbuck)
     for drop0 in (False, True):
         out = kernels.bucket_reduce(k256, buckets, drop0)
         torch.cuda.synchronize()
         _same_mod_p(k256, out, kernels.bucket_reduce_plain(k256, buckets, drop0))
+
+
+def test_fixup_single_lane_windows_match_plain(dev, k256):
+    """L = 1: no scan step, the last launch alone over 300 windows of one
+    lane (a ragged last block), each lane lead + O: equal mod p by
+    canonical coordinates to the twin's, the kernel's limbs canonical."""
+    t_l = _points(k256, 5, B, dev).reshape(3, -1, B, 1)
+    lead = _points(k256, 6, B, dev).reshape(3, -1, B, 1)
+    keys = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    out = kernels.fixup(k256, t_l, keys, keys, lead)
+    torch.cuda.synchronize()
+    _same_mod_p(k256, out, kernels.fixup_plain(k256, t_l, keys, keys, lead))
 
 
 def test_horner_matches_plain(dev, k256):

@@ -55,7 +55,7 @@
 // At 32, 64 and 128 ptxas gives the same 139-167 registers and 0 bytes of
 // spill; 128 ran fastest on an H100 (8 windows: 0.525 ms a call against
 // 0.554 and 0.578; 3 windows 0.326 against 0.332 and 0.335;
-// tpu_ecc_torch/tools/bench_bucket_blocks.py, PERF.md)
+// tpu_ecc_torch/tools/bench_blocks.py, PERF.md)
 #ifndef BUCKET_THREADS
 #define BUCKET_THREADS 128
 #endif

@@ -1,7 +1,8 @@
 // point32.cuh: projective points on the 32-bit field layer (fe32.cuh), the
 // complete RCB 2015 formulas, and the per-lane bodies of the kernels that run
-// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu, bucket_reduce.cu
-// and horner.cu keep only the launch).
+// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu, bucket_reduce.cu,
+// horner.cu, pow.cu and fixup.cu keep only the launch; pow's body is a field
+// chain, on either of a curve's two fields).
 //
 // The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
 // add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
@@ -297,26 +298,33 @@ FE32_FN Pt<C> pselect(bool c, const Pt<C>& a, const Pt<C>& b) {
 
 constexpr int TBL = 9;
 
+// word i of an element at dst[i * stride]
+template <class C>
+FE32_FN void put_elem(const E<C>& x, uint32_t* __restrict__ dst, uint32_t stride) {
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) dst[i * stride] = x.w[i];
+}
+
+// the element whose word i is at src[i * stride] (put_elem's layout)
+template <class C>
+FE32_FN E<C> get_elem(const uint32_t* __restrict__ src, uint32_t stride) {
+  E<C> x;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) x.w[i] = src[i * stride];
+  return x;
+}
+
 // word j of a point (x, y, z: j = c N + i) at dst[j * stride]
 template <class C>
 FE32_FN void put_point(const Pt<C>& p, uint32_t* __restrict__ dst, uint32_t stride) {
-  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
-    dst[i * stride] = p.x.w[i];
-    dst[(C::N + i) * stride] = p.y.w[i];
-    dst[(2 * C::N + i) * stride] = p.z.w[i];
-  }
+  put_elem<C>(p.x, dst, stride);
+  put_elem<C>(p.y, dst + C::N * stride, stride);
+  put_elem<C>(p.z, dst + 2 * C::N * stride, stride);
 }
 
 // the point whose word j is at src[j * stride] (put_point's layout)
 template <class C>
 FE32_FN Pt<C> get_point(const uint32_t* __restrict__ src, uint32_t stride) {
-  Pt<C> p;
-  FE32_UNROLL for (int i = 0; i < C::N; ++i) {
-    p.x.w[i] = src[i * stride];
-    p.y.w[i] = src[(C::N + i) * stride];
-    p.z.w[i] = src[(2 * C::N + i) * stride];
-  }
-  return p;
+  return Pt<C>{get_elem<C>(src, stride), get_elem<C>(src + C::N * stride, stride),
+               get_elem<C>(src + 2 * C::N * stride, stride)};
 }
 
 // entry m in [0, 8] of the 9 points at tbl[(k 3N + j) * stride], as a
@@ -525,11 +533,12 @@ FE32_FN void genmul_lane(const uint32_t* __restrict__ ctab, const uint32_t* __re
   store_point<C>(acc, out + lane, Bw);
 }
 
-// bucket_reduce's steps read and write the buckets as words [3N, len]
-// (put_point's layout, the bucket innermost) between launches; the first
-// step reads the 13-bit rows [3, NL, len] (ROWS), the last writes them.
+// the scan steps of bucket_reduce and fixup read and write their points as
+// words [3N, len] (put_point's layout, the bucket or lane innermost) between
+// launches; the first step reads the 13-bit rows [3, NL, len] (ROWS), the
+// last writes them.
 template <class C, bool ROWS>
-FE32_FN Pt<C> bucket_point(const uint32_t* __restrict__ src, uint32_t len) {
+FE32_FN Pt<C> scan_point(const uint32_t* __restrict__ src, uint32_t len) {
   if constexpr (ROWS) {
     return load_point<C>(src, len);
   } else {
@@ -546,8 +555,8 @@ FE32_FN Pt<C> bucket_point(const uint32_t* __restrict__ src, uint32_t len) {
 template <class C, bool ROWS>
 FE32_FN void bucket_suffix_lane(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
                                 uint32_t s, uint32_t nbuck, uint32_t total, uint32_t b) {
-  Pt<C> v = bucket_point<C, ROWS>(src + b, total);
-  if ((b & (nbuck - 1)) + s < nbuck) v = padd<C>(v, bucket_point<C, ROWS>(src + b + s, total));
+  Pt<C> v = scan_point<C, ROWS>(src + b, total);
+  if ((b & (nbuck - 1)) + s < nbuck) v = padd<C>(v, scan_point<C, ROWS>(src + b + s, total));
   put_point<C>(v, dst + b, total);
 }
 
@@ -566,6 +575,78 @@ FE32_FN void bucket_pair_lane(const uint32_t* __restrict__ src, uint32_t* __rest
   } else {
     put_point<C>(r, dst + t, len / 2);
   }
+}
+
+// fixup's Hillis-Steele step at shift s for lane l of `lanes` (windows of L
+// lanes side by side): dst[l] = src[l] + src[l - s] where l - s lies in l's
+// window and last_key[l - s] == last_key[l], else dst[l] = src[l]; src the
+// 13-bit rows (ROWS: the first step) or the words of the step before, dst
+// words. The keys are public (Pippenger serves public sums): the guard is a
+// branch, and a lane that does not add copies its words.
+template <class C, bool ROWS>
+FE32_FN void fixup_step_lane(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+                             const uint32_t* __restrict__ last_key, uint32_t s, uint32_t L,
+                             uint32_t lanes, uint32_t l) {
+  Pt<C> v = scan_point<C, ROWS>(src + l, lanes);
+  if (l % L >= s && last_key[l - s] == last_key[l])
+    v = padd<C>(v, scan_point<C, ROWS>(src + l - s, lanes));
+  put_point<C>(v, dst + l, lanes);
+}
+
+// fixup's last launch for lane l: out[l] = lead[l] + carry, carry = T[l - 1]
+// (the words of the last step) where l - 1 lies in l's window and
+// first_key[l] == last_key[l - 1], else O; lead and out 13-bit rows [3, NL,
+// lanes], out canonical. Every lane adds, as the twin does (lead + O is lead
+// projectively scaled, not lead's coordinates). With L = 1 no lane takes a
+// carry, and T is never read.
+template <class C>
+FE32_FN void fixup_final_lane(const uint32_t* __restrict__ T, const uint32_t* __restrict__ last_key,
+                              const uint32_t* __restrict__ first_key,
+                              const uint32_t* __restrict__ lead, uint32_t* __restrict__ out,
+                              uint32_t L, uint32_t lanes, uint32_t l) {
+  const Pt<C> carry = l % L >= 1 && first_key[l] == last_key[l - 1]
+                          ? get_point<C>(T + l - 1, lanes)
+                          : identity<C>();
+  store_point<C>(padd<C>(load_point<C>(lead + l, lanes), carry), out + l, lanes);
+}
+
+// pow: x^e for lane `lane` of x [NL, B] (13-bit rows of C's field, either
+// of a curve's fields) -> out [NL, B], canonical 13-bit limbs. digits
+// [ndig]: e's 4-bit windows, MSB first, public and the same for every lane.
+// The lane's table x, x^2, .., x^15 (14 multiplies): word i of x^k at
+// tbl[((k - 1) N + i) * stride] (the kernel's shared memory, the lane
+// innermost). acc starts at one; per digit 4 squarings, then a multiply by
+// x^d where d != 0 (a zero digit keeps acc: x^(16a) = (x^a)^16). The
+// digit is the same in every thread, so the branch and the table's
+// address are too.
+template <class C>
+FE32_FN void pow_lane(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                      uint32_t* __restrict__ tbl, uint32_t stride,
+                      const uint32_t* __restrict__ digits, int ndig, int B, int lane) {
+  const uint32_t Bw = (uint32_t)B;
+  const E<C> xv = from_limbs<C>(x + lane, Bw);
+  put_elem<C>(xv, tbl, stride);
+  E<C> cur = xv;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int k = 1; k < 15; ++k) {
+    cur = mul<C>(cur, xv);
+    put_elem<C>(cur, tbl + (uint32_t)k * C::N * stride, stride);
+  }
+  E<C> acc = one<C>();
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int d = 0; d < ndig; ++d) {
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int s = 0; s < 4; ++s) acc = sqr<C>(acc);
+    const uint32_t dig = digits[d];
+    if (dig != 0u) acc = mul<C>(acc, get_elem<C>(tbl + (dig - 1u) * C::N * stride, stride));
+  }
+  to_limbs<C>(acc, out + lane, Bw);
 }
 
 // horner: acc = 2^w acc + S_win over the window sums s_all [nw, 3, NL]

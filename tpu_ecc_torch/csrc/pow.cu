@@ -1,101 +1,82 @@
 // pow: x^e for a fixed public exponent e, 4-bit windows MSB first — the
-// Fermat inversion s^-1 = s^(n-2) of ECDSA verify, on either field.
+// Fermat inversion x^(p-2) (k^-1 in sign, s^-1 in verify, r^-1 in recover,
+// z^-1 in to_affine) and the p = 3 (mod 4) square root x^((p+1)/4), on
+// either field of the curve.
 //
 // Replaces tpu_ecc/ops/pallas_kernels.py pow_call (:1140-1236).
 //
-// Design: one thread per batch lane. The lane builds its table x^1..x^15
-// with 14 multiplies into global scratch [15, n, B] (limb-major, so the
-// table loads of a warp are coalesced), then walks the exponent digits:
-// four squarings, then a multiply by the table entry of the digit. The
-// accumulator starts at one and a zero digit keeps it, as the TPU kernel
-// does (:1187-1205), so results are limb-equal with it. The digits are
-// public, so the lane indexes the table by digit directly; every thread of
-// the grid takes the same branch.
+// Design: one thread per batch lane on the 32-bit field layer (fe32.cuh,
+// point32.cuh; the lane body is fe32::pow_lane), templated on the field's
+// traits: Curve32 for the base field (field 0), Scalar32 for the scalar
+// field (field 1; every scalar field is Montgomery in the 13-bit plan, so
+// its CIOS multiply runs with N0 != 1). The lane converts x from its
+// 13-bit row once, builds its table x, x^2, .., x^15 with 14 multiplies
+// into the block's shared memory, [15][N][POW_THREADS] words with the lane
+// innermost (480 B a lane), and keeps x and the accumulator in registers,
+// each multiply and squaring force-inlined. Per digit, MSB first: 4
+// squarings, then a multiply by the table entry where the digit is not 0,
+// as the TPU kernel does (:1187-1205) and kernels.fpow_plain; every step
+// is exact mod p, so the result is the same element, stored once as
+// canonical 13-bit limbs. The digits are public and the same for every
+// lane, so the table's address and the branch are uniform over the grid:
+// the shared-memory reads are free of bank conflicts and divergence.
 //
-// Bound: operations (4 squarings + <= 1 multiply per digit, each a
-// generated straight-line field op of ~1-2k 32-bit integer operations).
+// Bound: operations — per lane 14 + (nonzero digits) multiplies and 4 per
+// digit squarings, about 330 multiplies at e = p - 2 (kernels.work design
+// "fe32"); the bytes (x in, x^e out) are two orders smaller. B = 4096
+// lanes are 128 warps, a quarter of a warp a scheduler, each waiting on
+// its own dependent multiply-adds: latency, as the ladder's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_pow.cuh"
+#include "point32.cuh"
 
-#define THREADS 32
+// Threads a block, which __launch_bounds__ follows and the table's lane
+// stride is (15 KB of shared memory a block at 32); a build may set it.
+// At 32, 64 and 128 ptxas gives 0 bytes of spill (58-60 registers at 32,
+// 40-48 at 64 and 128); 32 ran fastest on an H100 on three of the four
+// fields, all within 2% (e = p - 2, B = 4096, ms a call at 32 / 64 / 128:
+// secp256k1 fn 0.2508 / 0.2529 / 0.2551, fp 0.1858 / 0.1841 / 0.1864;
+// P-256 fn 0.2246 / 0.2262 / 0.2264, fp 0.1738 / 0.1758 / 0.1753;
+// tpu_ecc_torch/tools/bench_blocks.py, PERF.md).
+#ifndef POW_THREADS
+#define POW_THREADS 32
+#endif
 
-struct FieldP {
-  enum { N = KFE_FP_N };
-  __device__ static void mul(const uint32_t* x, const uint32_t* y, uint32_t* o) {
-    kfe_fp_mul(x, y, o);
-  }
-  __device__ static void sqr(const uint32_t* x, uint32_t* o) { kfe_fp_sqr(x, o); }
-  __device__ static void one(uint32_t* o) { kfe_fp_one(o); }
-};
-
-struct FieldN {
-  enum { N = KFE_FN_N };
-  __device__ static void mul(const uint32_t* x, const uint32_t* y, uint32_t* o) {
-    kfe_fn_mul(x, y, o);
-  }
-  __device__ static void sqr(const uint32_t* x, uint32_t* o) { kfe_fn_sqr(x, o); }
-  __device__ static void one(uint32_t* o) { kfe_fn_one(o); }
-};
-
-template <class F>
-__global__ void pow_kernel(const uint32_t* __restrict__ x,
-                           uint32_t* __restrict__ out,
-                           uint32_t* __restrict__ tbl,
-                           const int32_t* __restrict__ digits, int ndig,
-                           int B) {
-  constexpr int N = F::N;
+template <class C>
+__global__ void __launch_bounds__(POW_THREADS)
+    pow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               const uint32_t* __restrict__ digits, int ndig, int B) {
+  extern __shared__ uint32_t tbl[];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  uint32_t xv[N], cur[N], nxt[N], acc[N];
-  for (int i = 0; i < N; ++i) {
-    xv[i] = x[(size_t)i * B + lane];
-    cur[i] = xv[i];
-    tbl[(size_t)i * B + lane] = xv[i];
-  }
-#pragma unroll 1
-  for (int k = 2; k < 16; ++k) {  // tbl[k - 1] = x^k
-    F::mul(cur, xv, nxt);
-    for (int i = 0; i < N; ++i) {
-      cur[i] = nxt[i];
-      tbl[((size_t)(k - 1) * N + i) * B + lane] = nxt[i];
-    }
-  }
-  F::one(acc);
-#pragma unroll 1
-  for (int d = 0; d < ndig; ++d) {
-#pragma unroll 1
-    for (int s = 0; s < 4; ++s) {
-      F::sqr(acc, nxt);
-      for (int i = 0; i < N; ++i) acc[i] = nxt[i];
-    }
-    const int dig = digits[d];
-    if (dig != 0) {  // x^(16a+0) = (x^a)^16: keep acc
-      for (int i = 0; i < N; ++i)
-        cur[i] = tbl[((size_t)(dig - 1) * N + i) * B + lane];
-      F::mul(acc, cur, nxt);
-      for (int i = 0; i < N; ++i) acc[i] = nxt[i];
-    }
-  }
-  for (int i = 0; i < N; ++i) out[(size_t)i * B + lane] = acc[i];
+  fe32::pow_lane<C>(x, out, tbl + threadIdx.x, POW_THREADS, digits, ndig, B, lane);
 }
 
-// field: 0 = base field (KFE_FP_N limbs), 1 = scalar field (KFE_FN_N limbs).
-// tbl: scratch of 15 * n * B words.
-extern "C" int pow_launch(const void* x, void* out, void* tbl,
-                          const void* digits, int ndig, int field, int B,
-                          int* launched, void* stream) {
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (field == 0)
-    pow_kernel<FieldP><<<grid, THREADS, 0, st>>>(
-        (const uint32_t*)x, (uint32_t*)out, (uint32_t*)tbl,
-        (const int32_t*)digits, ndig, B);
-  else
-    pow_kernel<FieldN><<<grid, THREADS, 0, st>>>(
-        (const uint32_t*)x, (uint32_t*)out, (uint32_t*)tbl,
-        (const int32_t*)digits, ndig, B);
+template <class C>
+static int pow_run(const void* x, void* out, const void* digits, int ndig, int B,
+                   cudaStream_t st) {
+  constexpr int smem = 15 * C::N * POW_THREADS * (int)sizeof(uint32_t);
+  void (*kernel)(const uint32_t*, uint32_t*, const uint32_t*, int, int) = pow_kernel<C>;
+  if constexpr (smem > 48 * 1024) {  // a build above 96 threads opts in; 32 needs no call
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(B + POW_THREADS - 1) / POW_THREADS, POW_THREADS, smem, st>>>(
+      (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)digits, ndig, B);
+  return 0;
+}
+
+// x, out [n, B] (13-bit rows of the field: 0 the base field, 1 the scalar
+// field); digits [ndig] int32, MSB first.
+extern "C" int pow_launch(const void* x, void* out, const void* digits, int ndig, int field,
+                          int B, int* launched, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = field == 0 ? pow_run<Curve32>(x, out, digits, ndig, B, st)
+                             : pow_run<Scalar32>(x, out, digits, ndig, B, st);
+  if (err != 0) return err;
   *launched = 1;
   return (int)cudaGetLastError();
 }

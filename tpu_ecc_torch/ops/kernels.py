@@ -25,16 +25,19 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Six of them, `padd_chain`, `segscan`, `ladder`,
-`genmul`, `bucket_reduce` and `horner` (FE32_KERNELS), run on the
-hand-written 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh): they
-convert their 13-bit rows to 8 words a coordinate on load, keep the point
-in registers, and store canonical 13-bit limbs; their generated header
-holds only the curve's constants (`kfe.fe32_header`, with the GLV beta
-where the curve has an endomorphism). `ladder` builds its tables [O, Q,
-.., 8Q] in shared memory (`ladder_lanes`), `genmul` converts the comb into
-shared memory once a block, `bucket_reduce` keeps the buckets as words in
-its scratch between its steps. The others call straight-line field and
+[.., n, B] uint32 arrays. Eight of them, `padd_chain`, `segscan`,
+`ladder`, `genmul`, `bucket_reduce`, `horner`, `pow` and `fixup`
+(FE32_KERNELS), run on the hand-written 32-bit field layer (csrc/fe32.cuh,
+csrc/point32.cuh): they convert their 13-bit rows to 8 words an element on
+load, keep the point or element in registers, and store canonical 13-bit
+limbs; their generated header holds only constants (`kfe.fe32_header`:
+the curve's `Curve32`, with the GLV beta where the curve has an
+endomorphism, and its scalar field's `Scalar32`, on which `pow` runs for
+field 1). `ladder` builds its tables [O, Q, .., 8Q] in shared memory
+(`ladder_lanes`), `genmul` converts the comb into shared memory once a
+block, `pow` keeps its table x..x^15 in shared memory, `bucket_reduce` and
+`fixup` keep their points as words in a scratch between their steps. The
+others (`padd`, `pdouble` and the probes) call straight-line field and
 point functions that ops/kfe.py generates from the KFE bound ledger into a
 header per (target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the a = -3
 ones for P-256 and the other a = -3 curves), a bare field spec
@@ -50,11 +53,11 @@ Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the six kernels
-on the 32-bit layer, each projective coordinate equals the twin's mod p
-(the same formulas in the same order; the limb plan differs, and the
-kernels store canonical values), and `segscan` writes only the run-end
-rows of `scanned`.
+so a kernel's output equals its twin's limb for limb; for the eight
+kernels on the 32-bit layer, `pow`'s element and each projective
+coordinate of the others equal the twin's mod p (the same operations in
+the same order; the limb plan differs, and the kernels store canonical
+values), and `segscan` writes only the run-end rows of `scanned`.
 
 Limbs cross to the kernels as int32 tensors that carry the uint32 bits:
 steady limbs are below 2^13, so the conversion from the port's int64 limbs
@@ -103,8 +106,7 @@ KERNELS = {
     "padd_chain": ("padd_chain.cu", (), "padd_chain_launch",
                    [_VP, _VP, _VP, _I, _I],
                    "tpu_ecc/ops/pallas_kernels.py:426"),
-    "pow": ("pow.cu", ("fp_mul", "fp_sqr", "fn_mul", "fn_sqr"), "pow_launch",
-            [_VP, _VP, _VP, _VP, _I, _I, _I],
+    "pow": ("pow.cu", (), "pow_launch", [_VP, _VP, _VP, _I, _I, _I],
             "tpu_ecc/ops/pallas_kernels.py:1140"),
     "ladder": ("ladder.cu", (), "ladder_launch",
                [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I],
@@ -115,7 +117,7 @@ KERNELS = {
     "segscan": ("segscan.cu", (), "segscan_launch",
                 [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I],
                 "tpu_ecc/ops/pallas_kernels.py:463"),
-    "fixup": ("fixup.cu", ("padd",), "fixup_launch",
+    "fixup": ("fixup.cu", (), "fixup_launch",
               [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I],
               "tpu_ecc/ops/pallas_kernels.py:647"),
     "bucket_reduce": ("bucket_reduce.cu", (), "bucket_reduce_launch",
@@ -136,7 +138,8 @@ KERNELS = {
                      "tools/profile_ladder.py:72"),
 }
 
-FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul", "bucket_reduce", "horner")
+FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul", "bucket_reduce", "horner", "pow",
+                "fixup")
 """The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -144,6 +147,8 @@ SMEM_BLOCK = 232448
 """Bytes of shared memory one block may opt into on an H100 (227 KB)."""
 LADDER_LANES = 32   # the most lanes a block of `ladder`
 GENMUL_LANES = 32   # the lanes a block of `genmul` (csrc/genmul.cu THREADS)
+POW_LANES = 32      # the lanes a block of `pow` (csrc/pow.cu POW_THREADS)
+FIXUP_LANES = 128   # the lanes a block of `fixup` (csrc/fixup.cu FIXUP_THREADS)
 CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
 PROBE_VARIANTS = ("bare", "unroll", "build", "select", "negate")
 
@@ -205,7 +210,7 @@ def _header(name: str, target) -> str:
     if target is None:
         return ""
     if name in FE32_KERNELS:
-        return kfe.fe32_header(target)
+        return kfe.fe32_header(target, fields_only=name == "pow")
     return kfe.kernel_header(target, functions(name, target))[0]
 
 
@@ -429,20 +434,30 @@ def _digit_tensor(e: int, device: torch.device) -> torch.Tensor:
 def fpow(spec: F.FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     """x^e for steady limbs x [n, *batch] and a fixed public e >= 2 -> steady
     limbs [n, *batch] (4-bit windows MSB first; the accumulator starts at one
-    and a zero digit keeps it)."""
+    and a zero digit keeps it). The kernel (on the 32-bit layer, either of
+    the curve's fields, the table x..x^15 in shared memory) returns
+    canonical limbs: the same element as the twin's, equal mod p. The
+    kernel is built for both fields of the curve, on the layer's 8 words:
+    raises NotImplementedError for a curve whose fields it cannot take
+    (`kfe.fe32_fits`: P-192, P-224, P-384, P-521 and the Brainpool
+    curves)."""
     if x.device.type == "cpu":
         return fpow_plain(spec, x, e)
     curve, field = _curve_of(spec)
+    for f in (curve.field, curve.scalar):
+        why = kfe.fe32_fits(f)
+        if why:
+            raise NotImplementedError(f"pow on the card: {why}")
     n = spec.n_limbs
     x2 = x.reshape(n, -1)
     B = x2.shape[1]
     _check(x2, (n, B), "pow x")
+    _check_words(x2, "pow x")
     x32 = _u32(x2)
     out = torch.empty((n, B), dtype=torch.int32, device=x.device)
-    tbl = torch.empty((15, n, B), dtype=torch.int32, device=x.device)
     digits = _digit_tensor(e, x.device)
     _launch("pow", curve, x.device, x32.data_ptr(), out.data_ptr(),
-            tbl.data_ptr(), digits.data_ptr(), digits.numel(), field, B)
+            digits.data_ptr(), digits.numel(), field, B)
     return _from_u32(out).reshape(x.shape)
 
 
@@ -656,7 +671,10 @@ def fixup(curve: CurveSpec, t_l: torch.Tensor, last_key: torch.Tensor,
     (the last axis; leading axes are independent windows): a segmented
     Hillis–Steele scan of the lane tails t_l [3, n, *w, L] keyed on last_key
     [*w, L], then lead + (T[l-1] where first_key[l] == last_key[l-1], else
-    O) -> int32 [3, n, *w, L]. log2(L) + 1 launches."""
+    O) -> int32 [3, n, *w, L]. log2(L) + 1 launches. The kernel (on the
+    32-bit layer) keeps the lanes as canonical words between its steps, in
+    a scratch of 2 * 3N words a lane, and returns each coordinate
+    canonical: equal mod p to the twin's."""
     if t_l.device.type == "cpu":
         return fixup_plain(curve, t_l, last_key, first_key, lead)
     keys = tuple(last_key.shape)
@@ -665,9 +683,11 @@ def fixup(curve: CurveSpec, t_l: torch.Tensor, last_key: torch.Tensor,
     _check(first_key, keys, "fixup first_key")
     _check(lead, (3, n, *keys), "fixup lead")
     L = keys[-1]
+    _check_words(t_l, "fixup t_l")   # the scratch is smaller
     t32, lk32, fk32, ld32 = _u32(t_l), _u32(last_key), _u32(first_key), _u32(lead)
     out = torch.empty((3, n, *keys), dtype=torch.int32, device=t_l.device)
-    buf = torch.empty((2, 3, n, *keys), dtype=torch.int32, device=t_l.device)
+    buf = torch.empty((2, 3 * kfe.FE32_N, last_key.numel()), dtype=torch.int32,
+                      device=t_l.device)
     _launch("fixup", curve, t_l.device, t32.data_ptr(), lk32.data_ptr(),
             fk32.data_ptr(), ld32.data_ptr(), out.data_ptr(), buf.data_ptr(), L,
             last_key.numel())
@@ -1160,4 +1180,21 @@ def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
         ops = total((nw * w, c["pdouble"]), (nw, c["padd"]), (3 * nw, c["load"]),
                     (3, c["store"]))
         return ops, (nw + 1) * pn * 4
+    if name == "pow":
+        # per lane: the load of x, 14 multiplies for the table and one a
+        # nonzero digit, 4 squarings a digit, the store; in the field's count
+        spec = (curve.field, curve.scalar)[kw["field"]]
+        f = kfe.fe32_counts(spec)
+        digits = exponent_digits(kw["e"])
+        muls = 14 + sum(1 for d in digits if d)
+        ops = total((B, f["load"]), (muls * B, f["mul"]), (4 * len(digits) * B, f["sqr"]),
+                    (B, f["store"]))
+        return ops, 2 * spec.n_limbs * 4 * B + 4 * len(digits)
+    if name == "fixup":
+        # the first step loads every lane's point (3 rows; the partners'
+        # loads of the lanes that add there are left out of this least
+        # count); an add per lane whose partner is in its run; the last
+        # launch loads lead, adds once a lane and stores
+        ops = total((6 * B, c["load"]), (kw["adds"] + B, c["padd"]), (3 * B, c["store"]))
+        return ops, (3 * pn + 2) * 4 * B
     raise KeyError(f"{name} does not run on the 32-bit layer")

@@ -26,6 +26,7 @@ exactly as tpu_ecc's Pallas bodies trace them (pallas_kernels.py:56-104,
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 
@@ -977,44 +978,78 @@ def _words(v: int, n: int) -> list:
     return [(v >> (32 * i)) & _M32 for i in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
+def fe32_fits(spec: FieldSpec, n_words: int = FE32_N) -> str:
+    """Why the 32-bit layer at N words cannot take the field `spec`, or ""
+    where it can: the layer needs 2^(32N-1) < p < 2^(32N), a loaded 13-bit
+    row's top word must fold into N words in reduce_top, and a solinas
+    field's F = 2^(32N) mod p must fold twice within N words (the carry
+    analysis of csrc/fe32.cuh)."""
+    p, N = spec.p, n_words
+    W = 1 << (32 * N)
+    if not W // 2 < p < W:
+        return f"{spec.name}: the 32-bit layer takes 2^{32 * N - 1} < p < 2^{32 * N}"
+    F = W % p
+    FW = -(-F.bit_length() // 32)
+    NL, LB = spec.n_limbs, spec.limb_bits
+    h_rows = ((1 << (NL * LB)) - 1) >> (32 * N)    # the rows' top word
+    if NL * LB > 32 * (N + 1) or (h_rows + 1) * F > W:
+        return f"{spec.name}: a loaded 13-bit row overflows the 32-bit layer's reduce_top"
+    if spec.kind != "mont" and not (F * (F + 1) <= W and 2 * FW - 1 <= N):
+        return f"{spec.name}: 2^{32 * N} mod p is too wide for the 32-bit layer's solinas fold"
+    return ""
+
+
+def fe32_field_constants(spec: FieldSpec, n_words: int = FE32_N) -> dict:
+    """The 32-bit layer's constants of one field, solinas or Montgomery in
+    the 13-bit plan (N words): p, F = 2^(32N) mod p in FW words, the
+    domain (Montgomery with R32 = 2^(32N) where the 13-bit plan is
+    Montgomery: N0 = -p^-1 mod 2^32 and the maps to and from the plan's
+    R13), one in the domain, and the 13-bit rows' limb plan (NL limbs of
+    LB bits). Raises NotImplementedError for a field the layer cannot take
+    (`fe32_fits`)."""
+    why = fe32_fits(spec, n_words)
+    if why:
+        raise NotImplementedError(why)
+    p, N = spec.p, n_words
+    W = 1 << (32 * N)
+    mont = spec.kind == "mont"
+    F = W % p
+    FW = -(-F.bit_length() // 32)
+    return {
+        "N": N, "NL": spec.n_limbs, "LB": spec.limb_bits, "FW": FW, "MONT": mont,
+        "N0": (-pow(p, -1, 1 << 32)) % (1 << 32),
+        "p": _words(p, N), "f": _words(F, FW), "one": _words(_fe32_enc(spec, N, 1), N),
+        # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
+        "to32": _words(F * F * pow(spec.W, -1, p) % p if mont else 0, N),
+        "to13": _words(spec.W % p if mont else 0, N),
+    }
+
+
+def _fe32_enc(spec: FieldSpec, N: int, v: int) -> int:
+    """v in the 32-bit layer's domain: v R32 mod p (Montgomery) or v mod p."""
+    return v * (1 << (32 * N)) % spec.p if spec.kind == "mont" else v % spec.p
+
+
 def fe32_constants(curve, n_words: int = FE32_N) -> dict:
-    """The constants of the 32-bit layer for `curve` (N words), with the
-    carry analysis of csrc/fe32.cuh checked for it: p, F = 2^(32N) mod p,
-    the domain (Montgomery with R32 = 2^(32N) where the 13-bit plan is
-    Montgomery) and its maps to and from the 13-bit plan's R13, the
-    formula's b multiplier in the domain, the GLV beta in the domain where
-    the curve has an endomorphism (HAS_BETA), and the 13-bit rows' limb
-    plan."""
+    """The constants of the 32-bit layer for `curve` (N words): its base
+    field's (`fe32_field_constants`) and the curve's own, with the carry
+    analysis of csrc/fe32.cuh checked for them: the formula's b multiplier
+    in the domain (BSMALL where it fits mul_small), and the GLV beta in the
+    domain where the curve has an endomorphism (HAS_BETA)."""
     if curve.strategy not in ("a0", "a_minus3"):
         raise NotImplementedError(
             f"{curve.name}: the {curve.strategy} formulas are not ported to the 32-bit layer")
     f = curve.field
-    p, N = f.p, n_words
-    W = 1 << (32 * N)
-    assert W // 2 < p < W, f"{curve.name}: the 32-bit layer needs 2^(32N-1) < p < 2^(32N)"
-    mont = f.kind == "mont"
-    F = W % p
-    FW = -(-F.bit_length() // 32)
-    NL, LB = f.n_limbs, f.limb_bits
-    assert NL * LB <= 32 * (N + 1)
-    h_rows = ((1 << (NL * LB)) - 1) >> (32 * N)    # the rows' top word
-    assert (h_rows + 1) * F <= W, "reduce_top of a loaded row"
-    if not mont:
-        assert F * (F + 1) <= W and 2 * FW - 1 <= N, "the solinas reduction"
-    r32 = W % p
-    enc = (lambda v: v * r32 % p) if mont else (lambda v: v % p)
+    k = fe32_field_constants(f, n_words)
+    N, p, W = k["N"], f.p, 1 << (32 * k["N"])
     b_plain = (3 * curve.b if curve.strategy == "a0" else curve.b) % p
     bsmall = b_plain if b_plain < (1 << 16) else 0
-    assert bsmall * F <= W, "mul_small by the b multiplier"
+    assert bsmall * (W % p) <= W, "mul_small by the b multiplier"
     return {
-        "N": N, "NL": NL, "LB": LB, "FW": FW, "MONT": mont, "A0": curve.strategy == "a0",
-        "N0": (-pow(p, -1, 1 << 32)) % (1 << 32), "BSMALL": bsmall,
-        "p": _words(p, N), "f": _words(F, FW), "one": _words(enc(1), N),
-        "bmul": _words(enc(b_plain), N), "HAS_BETA": bool(curve.glv),
-        "beta": _words(enc(curve.glv["beta"]) if curve.glv else 0, N),
-        # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
-        "to32": _words(r32 * r32 * pow(f.W, -1, p) % p if mont else 0, N),
-        "to13": _words(f.W % p if mont else 0, N),
+        **k, "A0": curve.strategy == "a0", "BSMALL": bsmall,
+        "bmul": _words(_fe32_enc(f, N, b_plain), N), "HAS_BETA": bool(curve.glv),
+        "beta": _words(_fe32_enc(f, N, curve.glv["beta"]) if curve.glv else 0, N),
     }
 
 
@@ -1024,24 +1059,39 @@ def _word_function(name: str, words) -> str:
             f"    return {chain}0u;\n  }}\n")
 
 
-def fe32_header(curve) -> str:
-    """The generated header of a kernel on the 32-bit layer: the traits
-    class `Curve32` that csrc/fe32.cuh and csrc/point32.cuh take, with the
-    constants of `fe32_constants` (each word array a constexpr function of
-    the word index, folded where the layer's loops are unrolled)."""
-    k = fe32_constants(curve)
+def _traits(name: str, k: dict) -> str:
+    """A traits class of csrc/fe32.cuh: the constants in `k` (each word
+    array a constexpr function of the word index, folded where the layer's
+    loops are unrolled)."""
+    def has(names):
+        return [n for n in names if n in k]
+
     ints = "".join(f"  static constexpr int {n} = {k[n]};\n" for n in ("N", "NL", "LB", "FW"))
     flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n"
-                    for n in ("MONT", "A0", "HAS_BETA"))
-    words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n" for n in ("N0", "BSMALL"))
+                    for n in has(("MONT", "A0", "HAS_BETA")))
+    words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n"
+                    for n in has(("N0", "BSMALL")))
     funcs = "".join(_word_function(n, k[n])
-                    for n in ("p", "f", "one", "bmul", "beta", "to32", "to13"))
+                    for n in has(("p", "f", "one", "bmul", "beta", "to32", "to13")))
+    return f"struct {name} {{\n{ints}{flags}{words}{funcs}}};\n"
+
+
+def fe32_header(curve, fields_only: bool = False) -> str:
+    """The generated header of a kernel on the 32-bit layer: the traits
+    classes that csrc/fe32.cuh and csrc/point32.cuh take, `Curve32` (the
+    base field and the curve, `fe32_constants`) and `Scalar32` (the scalar
+    field, `fe32_field_constants`). With `fields_only` (`pow`'s header,
+    which runs no point formula) `Curve32` holds the base field's
+    constants alone, so that it needs no more of the curve than its two
+    fields."""
+    base = fe32_field_constants(curve.field) if fields_only else fe32_constants(curve)
     return ("// Generated by tpu_ecc_torch/ops/kfe.py (fe32_header). Do not edit.\n"
             f"// The 32-bit field layer's constants for {curve.name}.\n"
             "#pragma once\n#include <stdint.h>\n"
             "#ifndef __CUDACC__\n#ifndef __host__\n#define __host__\n#endif\n"
             "#ifndef __device__\n#define __device__\n#endif\n#endif\n"
-            f"struct Curve32 {{\n{ints}{flags}{words}{funcs}}};\n")
+            + _traits("Curve32", base)
+            + _traits("Scalar32", fe32_field_constants(curve.scalar)))
 
 
 class _Tally:
@@ -1095,22 +1145,24 @@ def fe32_point_ops(fn: str, strategy: str) -> dict:
     return ops
 
 
-def fe32_counts(curve) -> dict:
+def fe32_counts(target) -> dict:
     """The instructions each function of the 32-bit layer needs at least, by
     class (FE32_CLASSES), counted from the structure of csrc/fe32.cuh and
-    csrc/point32.cuh with the curve's constants: one instruction per word
-    of an add, subtract or select, one IMAD.WIDE.U32 per product (plus an
-    add where it has a second addend), none for a multiply by a constant 0,
-    a power of two or 2^32 - 1, by N0 = 1 or by a word of all ones masked
-    (see `_Tally.mac`), and one shift-add
-    (LEA) per limb part packed or one funnel shift and one AND per limb
-    unpacked. Returns {name: counts} for add, sub, neg, mul, mul_b,
-    mul_beta, load (a 13-bit coordinate to the domain), store (back), cneg
-    (y or p - y), pselect (a point's select), select_point and
-    select_affine (an entry of 9 points or 9 affine points, a compare and
-    a select of each word for each entry but the first), and the point
-    formulas FE32_POINT_FNS."""
-    k = fe32_constants(curve)
+    csrc/point32.cuh with the constants of `target`, a curve (its base
+    field and its formulas) or a field spec (a field alone, such as a
+    curve's scalar field): one instruction per word of an add, subtract or
+    select, one IMAD.WIDE.U32 per product (plus an add where it has a
+    second addend), none for a multiply by a constant 0, a power of two or
+    2^32 - 1, by N0 = 1 or by a word of all ones masked (see
+    `_Tally.mac`), and one shift-add (LEA) per limb part packed or one
+    funnel shift and one AND per limb unpacked. Returns {name: counts} for
+    add, sub, neg, mul, sqr, load (a 13-bit element to the domain) and
+    store (back); for a curve also mul_b, mul_beta, cneg (y or p - y),
+    pselect (a point's select), select_point and select_affine (an entry
+    of 9 points or 9 affine points, a compare and a select of each word
+    for each entry but the first), and the point formulas FE32_POINT_FNS."""
+    curve = None if isinstance(target, FieldSpec) else target
+    k = fe32_field_constants(target) if curve is None else fe32_constants(curve)
     N, FW, NL, LB = k["N"], k["FW"], k["NL"], k["LB"]
     P, Fw = k["p"], k["f"]
 
@@ -1152,22 +1204,41 @@ def fe32_counts(curve) -> dict:
         fold(t)
         reduce_once(t)
 
-    def mul_mont(t):
-        for i in range(N):
-            for j in range(N):
-                t.mac(None, addends=(i > 0) + (j > 0))
+    def reduce_mont(t):
+        # CIOS's reduction rows (interleaved with the product rows in
+        # fe32.cuh; the count is the same): m = t0 N0, then m p added
+        for _ in range(N):
             t(other=1, imad=int(k["N0"] != 1))
             for j in range(N):
                 t.mac(P[j], addends=2)
             t(other=2)
         reduce_once(t)
 
+    def mul_mont(t):
+        mul_wide(t)
+        reduce_mont(t)
+
+    def sqr_wide(t):
+        # the cross products a_i a_j (i < j) once, their 2N-word sum doubled
+        # (a funnel shift a word), then the diagonal a_i^2 added
+        for i in range(N):
+            for j in range(i + 1, N):
+                t.mac(None, addends=(i > 0) + (j > i + 1))
+        t(other=2 * N)
+        for _ in range(N):
+            t.mac(None, addends=2)
+
+    reduce = reduce_mont if k["MONT"] else reduce_solinas
+
     def mul(t):
-        if k["MONT"]:
-            mul_mont(t)
-        else:
-            mul_wide(t)
-            reduce_solinas(t)
+        mul_wide(t)
+        reduce(t)
+
+    def sqr(t):
+        # what a squaring needs: N(N+1)/2 products, the reduction as mul's
+        # (csrc/fe32.cuh's sqr is mul(a, a), N^2 products)
+        sqr_wide(t)
+        reduce(t)
 
     def mul_b(t):
         if k["BSMALL"]:
@@ -1199,16 +1270,20 @@ def fe32_counts(curve) -> dict:
         sub(t)
         t(alu=N)
 
-    fns = {"add": add, "sub": sub, "neg": sub, "mul": mul, "mul_b": mul_b,
-           "mul_beta": mul, "load": load, "store": store, "cneg": cneg,
-           "pselect": lambda t: t(alu=3 * N),
-           "select_point": lambda t: t(alu=8 * (1 + 3 * N)),
-           "select_affine": lambda t: t(alu=8 * (1 + 2 * N))}
+    fns = {"add": add, "sub": sub, "neg": sub, "mul": mul, "sqr": sqr, "load": load,
+           "store": store}
+    if curve is not None:
+        fns.update({"mul_b": mul_b, "mul_beta": mul, "cneg": cneg,
+                    "pselect": lambda t: t(alu=3 * N),
+                    "select_point": lambda t: t(alu=8 * (1 + 3 * N)),
+                    "select_affine": lambda t: t(alu=8 * (1 + 2 * N))})
     out = {}
     for name, fn in fns.items():
         t = _Tally()
         fn(t)
         out[name] = t.c
+    if curve is None:
+        return out
     for name in FE32_POINT_FNS:
         t = _Tally()
         for op, times in fe32_point_ops(name, curve.strategy).items():

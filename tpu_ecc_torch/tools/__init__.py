@@ -6,11 +6,11 @@ runs as
 
 on the card unless `--device cpu` is given (the kernels' plain twins; a CPU
 time says nothing of the card). Each prints its measurements and its `main`
-returns them. `bench_imad_wide`, `bench_ladder_forms` and
-`bench_bucket_blocks`, the port's own, run on the card only: the first
-measures the IMAD.WIDE.U32 rate that the 32-bit layer's bound assumes, the
-second the ladder kernel's launch forms (csrc/ladder.cu builds each field's
-in the form it found fastest), the third bucket_reduce's block sizes.
+returns them. `bench_imad_wide`, `bench_ladder_forms` and `bench_blocks`,
+the port's own, run on the card only: the first measures the IMAD.WIDE.U32
+rate that the 32-bit layer's bound assumes, the second the ladder kernel's
+launch forms (csrc/ladder.cu builds each field's in the form it found
+fastest), the third the block sizes of bucket_reduce, pow and fixup.
 """
 
 from __future__ import annotations
