@@ -12,11 +12,12 @@
    code (g++). Prints the seconds it took and ptxas's registers and stack
    for each. The kernels on the 32-bit field layer (padd_chain, ladder,
    genmul and pow for both curves, pow on both fields; segscan, fixup,
-   bucket_reduce, horner) must show 0 bytes of spill stores and loads; for
-   each, the instructions of its loop bodies in the built SASS (cuobjdump
-   -sass; pow's for each field; bucket_reduce's tree step and fixup's
-   step, which have no loop, whole), by class, print beside the count of
-   kernels.work's "fe32" design.
+   bucket_reduce, horner, ladder_probe's five variants) and dma_gather
+   must show 0 bytes of spill stores and loads; for each, the instructions
+   of its loop bodies in the built SASS (cuobjdump -sass; pow's for each
+   field, ladder_probe's for each variant; bucket_reduce's tree step and
+   fixup's step, which have no loop, whole), by class, print beside the
+   count of kernels.work's "fe32" design.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
    for the kernels on the 32-bit layer, which store canonical values, zero
@@ -78,9 +79,11 @@
 9. Probes (run after step 7, before the record of step 8): holds the four
    probe kernels against their twins at the tools' shapes (exact): dma_gather
    (N = 2^20, W = 128, M = 2^18, Cb = 4096 at depth 8, 2 and 16, and Cb =
-   256 at depth 8),
+   256 at depth 8; each with the GB/s of the rows read beside
+   index_select's, which also writes them),
    fmul_chain on the three fields and mxu_chain on the two Montgomery ones
-   at B = 8192, ladder_probe's five variants at B = 4096 on 34 windows.
+   at B = 8192, ladder_probe's five variants at B = 4096 on 34 windows (on
+   the 32-bit layer: by canonical coordinates mod p).
    Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
    default sizes, each with the counts set to 0 just before and read just
    after, and prints what each probe answered.
@@ -275,13 +278,14 @@ def sass_class(op: str) -> str:
 SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E|ladder_mont_kernel",),
                  "bucket_reduce": ("bucket_reduce_pair_kernelILb0E",),
                  "pow": ("pow_kernelI7Curve32E", "pow_kernelI8Scalar32E"),
-                 "fixup": ("fixup_step_kernelILb0E",)}
+                 "fixup": ("fixup_step_kernelILb0E",),
+                 "ladder_probe": tuple(f"ladder_probe_kernelILi{v}E" for v in range(5))}
 """The functions whose SASS `sass_loop_counts` reads, where they are not
 `<kernel>_kernel`, each of them in every build ("a|b": a in one build, b in
 another): the ladder's instance for full blocks (csrc/ladder.cu: the
 solinas or the Montgomery form); bucket_reduce's tree step from words to
 words, one add; pow's instance for each field; fixup's step from words to
-words, one add."""
+words, one add; ladder_probe's five variants (kernels.PROBE_VARIANTS)."""
 
 
 def sass_loop_counts(so: str, function: str) -> list:
@@ -630,10 +634,14 @@ def probes(hold, fields, dev) -> dict:
     # (Cb, depth): the tool's default first (the row's time), then the
     # other depths and the smaller chunks of the tool's last two lines
     for Cb, depth in ((GATHER_CB, 8), (GATHER_CB, 2), (GATHER_CB, 16), (256, 8)):
-        hold("dma_gather", f"N=2^20 W={GATHER_W} M=2^18 Cb={Cb} depth={depth}",
-             lambda: K.dma_gather(pay, idx, Cb, depth),
-             lambda: K.dma_gather_plain(pay, idx), 10, B=GATHER_W, c=None,
-             library=lambda: torch.index_select(pay, 0, idx), M=GATHER_M)
+        ms, lib_ms = hold("dma_gather", f"N=2^20 W={GATHER_W} M=2^18 Cb={Cb} depth={depth}",
+                          lambda: K.dma_gather(pay, idx, Cb, depth),
+                          lambda: K.dma_gather_plain(pay, idx), 10, B=GATHER_W, c=None,
+                          library=lambda: torch.index_select(pay, 0, idx), M=GATHER_M)
+        rows_b = GATHER_M * GATHER_W * 4          # the rows read; index_select also writes them
+        print(f"    rows read: dma_gather {rows_b / ms / 1e6:.1f} GB/s, index_select "
+              f"{rows_b / lib_ms / 1e6:.1f} GB/s (it moves {2 * rows_b / lib_ms / 1e6:.1f} "
+              f"GB/s, reading and writing each row)")
     del pay
     rng = np.random.default_rng(9)
     for spec in fields:
@@ -650,7 +658,7 @@ def probes(hold, fields, dev) -> dict:
     twins = {}
 
     def ladder_twin(variant):
-        # unroll and build return bare's limbs (the same selects and adds;
+        # unroll and build return bare's values (the same selects and adds;
         # unroll differs in compilation, build in a table no one reads), so
         # their twin is computed once
         key = variant if variant in ("select", "negate") else "bare"
@@ -661,7 +669,8 @@ def probes(hold, fields, dev) -> dict:
     for variant in ("negate", "bare", "unroll", "build", "select"):   # the whole body first
         hold("ladder_probe", f"{variant} nw={profile_ladder.NW} B={LADDER_B}",
              lambda: K.ladder_probe(curve, bases, mag, neg, variant),
-             lambda: ladder_twin(variant), 3, nw=profile_ladder.NW, variant=variant)
+             lambda: ladder_twin(variant), 3, compare=coord_diff(curve),
+             block=K.PROBE_LANES, nw=profile_ladder.NW, variant=variant)
     del twins
     torch.cuda.synchronize()
 
@@ -744,8 +753,8 @@ def main() -> int:
           f"{[row_name(n, t) for t, n in probe_targets]} for the probes")
     for (cname, name), rep in reports.items():
         print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
-    print("the 32-bit layer's kernels: ptxas, and the loop bodies in SASS against "
-          "the fe32 count")
+    print("the 32-bit layer's kernels and dma_gather: ptxas, and the loop bodies in SASS "
+          "against the fe32 count")
     for c in curves:
         model = kfe.fe32_counts(c)
         print(f"  fe32 count, {c.name}: " + ", ".join(
@@ -755,7 +764,7 @@ def main() -> int:
             + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
             + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
     for c, name in [(c, n) for c in curves for n in K.FE32_KERNELS
-                    if (c, n) in targets]:
+                    if (c, n) in targets] + [(None, "dma_gather")]:
         so = K._target(name, c)[0]
         with open(f"{so}.log") as fh:
             regs, stack = ptxas_report(fh.read())
@@ -830,6 +839,7 @@ def main() -> int:
         if "ms" not in row:        # the first variant is the main path's shape
             row.update(ms=ms, plain_ms=1e3 * plain_s, bound_ms=bound_ms, bound_by=by,
                        library_ms=lib_ms)
+        return ms, lib_ms
 
     print("hold: kernels against their plain twins")
     a_l, a_pts = _points(curve, 1, 8192, dev)

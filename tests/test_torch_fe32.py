@@ -1,11 +1,12 @@
 """The 32-bit field layer (tpu_ecc_torch/csrc/fe32.cuh, point32.cuh) and the
-per-lane bodies of the eight kernels that run on it, `padd_chain`,
-`segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`, `pow` and
-`fixup`, built with g++ into one host harness per curve (secp256k1: a = 0,
-solinas fold, GLV beta; P-256: a = -3, Montgomery CIOS with the domain
-maps to and from the 13-bit plan's R; each curve's scalar field,
-Montgomery with N0 != 1, as the traits Scalar32; the pow body also on
-bign256's base field and sm2's scalar field).
+per-lane bodies of the nine kernels that run on it, `padd_chain`,
+`segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`, `pow`, `fixup`
+and the probe `ladder_probe`, built with g++ into one host harness per
+curve (secp256k1: a = 0, solinas fold, GLV beta; P-256: a = -3,
+Montgomery CIOS with the domain maps to and from the 13-bit plan's R;
+each curve's scalar field, Montgomery with N0 != 1, as the traits
+Scalar32; the pow body also on bign256's base field and sm2's scalar
+field).
 
 Inputs are made from a numpy seed (and the host oracle's points). Tolerance:
 exact. The field operations and both boundary converters equal Python ints;
@@ -16,14 +17,16 @@ the port's plain ones and the host oracle; the chain body equals
 rows that the kernel writes, the ladder body `ladder_plain` (its tables in a
 buffer shared by blocks of lanes, as the kernel's shared memory) and the
 genmul body (the comb converted by its prologue) `genmul_plain`, the
+ladder probe's five variants `ladder_probe_plain` (the table shared as
+the ladder's), the
 bucket_reduce and fixup steps (run as their launches run them)
 `bucket_reduce_plain` and `fixup_plain`, the horner body `horner_plain` and
 the pow body `fpow_plain` and Python's pow, on both fields. Every value the
 harness returns is canonical.
 
-Budget: 100 s for the file at one process (58-76 s: two g++ builds at
--O0 of about 2 s each, and six small XLA:CPU programs, which take most of
-it).
+Budget: 100 s for the file at one process (87 s with the probe's ten
+cases: two g++ builds at -O0 of about 2 s each, and six small XLA:CPU
+programs, which take most of it).
 """
 
 import functools
@@ -87,6 +90,17 @@ static void run_pow(size_t n, int ndig, size_t TL) {
                 (int)l);
   wr(out);
 }
+// ladder_probe variant K: bases [3, NL, B], mag, neg [nw, 2, B] -> out;
+// blocks of TL lanes share a table buffer, as the kernel's shared memory
+template <int K>
+static void run_probe(size_t n, int nw, size_t TL) {
+  V bases = rd(3 * C::NL * n), mag = rd(nw * 2 * n), neg = rd(nw * 2 * n),
+    out(3 * C::NL * n), tbl(TBL * 3 * C::N * TL, 0xFFFFFFFFu);
+  for (size_t l = 0; l < n; ++l)
+    ladder_probe_lane<C, K>(bases.data(), mag.data(), neg.data(), out.data(), &tbl[l % TL],
+                            (uint32_t)TL, nw, (int)n, (int)l);
+  wr(out);
+}
 // harness <mode> <lanes> [args]: uint32 arrays in on stdin, out on stdout
 int main(int argc, char** argv) {
   if (argc < 3) return 2;
@@ -132,6 +146,17 @@ int main(int argc, char** argv) {
       ladder_lane<C>(bases.data(), mag.data(), neg.data(), out.data(), &tbl[l % TL],
                      (uint32_t)TL, T, H, nw, glv != 0, (int)n, (int)l);
     wr(out);
+    return 0;
+  }
+  if (!strcmp(m, "probe")) {  // probe B nw variant TL
+    const int nw = atoi(argv[3]), v = atoi(argv[4]);
+    const size_t TL = (size_t)atoi(argv[5]);
+    if (v == PROBE_BARE) run_probe<PROBE_BARE>(n, nw, TL);
+    else if (v == PROBE_UNROLL) run_probe<PROBE_UNROLL>(n, nw, TL);
+    else if (v == PROBE_BUILD) run_probe<PROBE_BUILD>(n, nw, TL);
+    else if (v == PROBE_SELECT) run_probe<PROBE_SELECT>(n, nw, TL);
+    else if (v == PROBE_NEGATE) run_probe<PROBE_NEGATE>(n, nw, TL);
+    else return 3;
     return 0;
   }
   if (!strcmp(m, "genmul")) {  // genmul B nw threads: the prologue by `threads` threads
@@ -584,6 +609,29 @@ def test_ladder_body_equals_plain(harness, cname, T, glv):
 
 
 @pytest.mark.parametrize("cname", CURVES)
+@pytest.mark.parametrize("variant", kernels.PROBE_VARIANTS)
+def test_ladder_probe_body_equals_plain(harness, cname, variant):
+    """ladder_probe_lane, each of the five variants, on random steady
+    representatives of host-oracle points (O among them) and random digits
+    (3 windows), in blocks of 4 lanes sharing a table buffer as the
+    kernel's shared memory, against kernels.ladder_probe_plain mod p."""
+    curve = get_curve(cname)
+    rng = np.random.default_rng(13)
+    pts, _ = _affine_pairs(curve)
+    bases = _steady_limbs(curve, pts, rng)
+    nw = 3
+    mag = rng.integers(0, kernels.TBL, (nw, 2, B))
+    neg = rng.integers(0, 2, (nw, 2, B))
+    got = harness(cname)("probe", B, nw, kernels.PROBE_VARIANTS.index(variant), 4,
+                         arrays=[bases, mag, neg]).reshape(bases.shape)
+    _canonical(curve, got, 1)
+    want = kernels.ladder_probe_plain(curve, torch.from_numpy(bases.astype(np.int64)),
+                                      torch.from_numpy(mag), torch.from_numpy(neg),
+                                      variant).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want, 1)).all()
+
+
+@pytest.mark.parametrize("cname", CURVES)
 def test_genmul_body_equals_plain(harness, cname):
     """genmul_table (the prologue, by 5 threads) and genmul_lane on
     scalarmul._gen_table's rows and signed_digits' 65 windows, k = 0, 1,
@@ -914,7 +962,8 @@ def test_fe32_counts_and_constants(cname):
               "genmul": dict(nw=65),
               "segscan": dict(C=64, adds=2000, ends=500, signed=True),
               "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14),
-              "pow": dict(field=1, e=n.p - 2), "fixup": dict(adds=300)}
+              "pow": dict(field=1, e=n.p - 2), "fixup": dict(adds=300),
+              "ladder_probe": dict(nw=34, variant="negate")}
     assert set(shapes) == set(kernels.FE32_KERNELS)
     for name, kw in shapes.items():
         ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]
@@ -985,7 +1034,10 @@ def test_pow_builds_for_the_fields_on_the_layer(cname):
 
 @pytest.mark.parametrize("const,src,macro", [
     ("POW_LANES", "pow.cu", "POW_THREADS"), ("FIXUP_LANES", "fixup.cu", "FIXUP_THREADS"),
-    ("GENMUL_LANES", "genmul.cu", "THREADS"), ("LADDER_LANES", "ladder.cu", "MAX_LANES")])
+    ("GENMUL_LANES", "genmul.cu", "THREADS"), ("LADDER_LANES", "ladder.cu", "MAX_LANES"),
+    ("PROBE_LANES", "ladder_probe.cu", "PROBE_THREADS"),
+    ("GATHER_WARPS", "dma_gather.cu", "GATHER_WARPS"),
+    ("GATHER_ROWS", "dma_gather.cu", "GATHER_ROWS")])
 def test_block_sizes_follow_the_sources(const, src, macro):
     """The lanes a block that ops/kernels.py states (for its shared-memory
     sizing and the smoke's warp counts) are the sources' defaults."""

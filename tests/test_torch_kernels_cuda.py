@@ -1,10 +1,10 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
 Each kernel must equal its twin limb for limb (tolerance: exact), except
-the eight on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
-bucket_reduce, horner, pow, fixup), which store canonical values: pow's
-element and each projective coordinate of the others must equal the
-twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
+the nine on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
+bucket_reduce, horner, pow, fixup, ladder_probe), which store canonical
+values: pow's element and each projective coordinate of the others must
+equal the twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
 run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
 with
@@ -325,21 +325,65 @@ def test_msm_on_the_card_equals_host(dev, k256, n_points):
 
 # the probe kernels (tpu_ecc_torch/tools/)
 
-@pytest.mark.parametrize("depth", [2, 8, 16])
-@pytest.mark.parametrize("W", [32, 128])
-def test_dma_gather_matches_plain(dev, W, depth):
-    """The XOR of the gathered rows equals the twin's and numpy's."""
-    from tpu_ecc_torch.tools import bench_gather_probe as G
-
-    N, M, Cb = 4096, 1024, 256
-    pay = G.device_payload(N, W, dev)
-    idx_np = np.random.default_rng(depth).integers(0, N, M).astype(np.int32)
+def _gather_holds(pay, idx_np, Cb, depth, dev):
+    """dma_gather over idx_np equals its twin and numpy's XOR of the rows."""
     idx = torch.from_numpy(idx_np).to(dev)
     out = kernels.dma_gather(pay, idx, Cb, depth)
     torch.cuda.synchronize()
     assert torch.equal(out, kernels.dma_gather_plain(pay, idx))
     want = np.bitwise_xor.reduce(pay.cpu().numpy()[idx_np], axis=0, keepdims=True)
     np.testing.assert_array_equal(out.cpu().numpy(), want)
+    return out
+
+
+@pytest.mark.parametrize("depth", [2, 8, 16])
+@pytest.mark.parametrize("Cb", [256, 1024, 4096])
+@pytest.mark.parametrize("W", [32, 128])
+def test_dma_gather_matches_plain(dev, W, Cb, depth):
+    """The XOR of the gathered rows equals the twin's and numpy's, at the
+    tool's chunks and depths (M = 2 Cb + 8192: 2 + 8192 / Cb chunks, each
+    split into runs of GATHER_ROWS rows, one a warp)."""
+    from tpu_ecc_torch.tools import bench_gather_probe as G
+
+    N, M = 4096, 2 * Cb + 8192
+    pay = G.device_payload(N, W, dev)
+    idx_np = np.random.default_rng(depth).integers(0, N, M).astype(np.int32)
+    _gather_holds(pay, idx_np, Cb, depth, dev)
+
+
+@pytest.mark.parametrize("Cb,depth", [(256, 8), (4096, 16), (200, 8)])
+def test_dma_gather_pairs_cancel(dev, Cb, depth):
+    """idx of rows gathered twice, whose pairs cancel under XOR, and one
+    row once: the result is that row alone, so a row gathered twice or
+    never shows. The pairs lie in one run, across the runs of a chunk and
+    across chunks; Cb = 200 splits into runs of 29 rows and a last of 26,
+    no multiple of the depth."""
+    from tpu_ecc_torch.tools import bench_gather_probe as G
+
+    N, W = 4096, 128
+    pay = G.device_payload(N, W, dev)
+    rng = np.random.default_rng(Cb)
+    M = 4 * Cb
+    half = rng.integers(0, N, M // 2).astype(np.int32)
+    idx_np = rng.permutation(np.concatenate([half, half]))
+    idx_np[np.flatnonzero(idx_np == idx_np[0])] = 7       # those pairs now cancel on row 7
+    idx_np[0] = 9          # one row 7 left unpaired, and row 9 once
+    out = _gather_holds(pay, idx_np, Cb, depth, dev)
+    assert torch.equal(out, pay[7:8] ^ pay[9:10])
+
+
+@pytest.mark.parametrize("W", [32, 128])
+def test_dma_gather_smallest_shape(dev, W):
+    """M = Cb = depth (one warp of a block whose other warps idle, one
+    round of its ring), and M = 0."""
+    from tpu_ecc_torch.tools import bench_gather_probe as G
+
+    pay = G.device_payload(64, W, dev)
+    for depth in (1, 2, 16):
+        _gather_holds(pay, np.arange(depth, dtype=np.int32)[::-1].copy(), depth, depth, dev)
+    out = kernels.dma_gather(pay, torch.empty(0, dtype=torch.int32, device=dev), 4, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(pay[:1]))
 
 
 FIELDS = ["secp256k1.fp", "p256.fp", "k256mxu.fp"]
@@ -386,4 +430,4 @@ def test_ladder_probe_matches_plain(dev, k256, variant):
     neg = torch.from_numpy(rng.integers(0, 2, (nw, 2, B)).astype(bool)).to(dev)
     out = kernels.ladder_probe(k256, bases, mag, neg, variant)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.ladder_probe_plain(k256, bases, mag, neg, variant))
+    _same_mod_p(k256, out, kernels.ladder_probe_plain(k256, bases, mag, neg, variant))

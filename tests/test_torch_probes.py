@@ -101,6 +101,9 @@ def test_dma_gather_rejects_what_the_kernel_does_not_take():
             kernels.dma_gather(pay, idx, Cb, depth)
     with pytest.raises(ValueError):                    # a row of 40 bytes
         kernels.dma_gather(pay[:, :10].contiguous(), idx, 16, 4)
+    wide = bench_gather_probe.device_payload(64, 1024, "cpu")
+    with pytest.raises(ValueError, match="ring"):      # 64 slots of 4 KB: above a block's
+        kernels.dma_gather(wide, torch.arange(64, dtype=torch.int32), 64, 64)
 
 
 # -- B14: the field-multiply chain ---------------------------------------------

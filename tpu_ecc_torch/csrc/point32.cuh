@@ -1,8 +1,8 @@
 // point32.cuh: projective points on the 32-bit field layer (fe32.cuh), the
 // complete RCB 2015 formulas, and the per-lane bodies of the kernels that run
 // on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu, bucket_reduce.cu,
-// horner.cu, pow.cu and fixup.cu keep only the launch; pow's body is a field
-// chain, on either of a curve's two fields).
+// horner.cu, pow.cu, fixup.cu and ladder_probe.cu keep only the launch; pow's
+// body is a field chain, on either of a curve's two fields).
 //
 // The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
 // add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
@@ -488,6 +488,84 @@ FE32_FN void ladder_lane(const uint32_t* __restrict__ bases, const uint32_t* __r
       } else {
         acc = padd<C>(acc, s);
       }
+    }
+  }
+  store_point<C>(acc, out + lane, Bw);
+}
+
+// v, which the compiler may not take for the same value on two calls: a
+// table read at an offset made from it stays inside its loop. Without it
+// nvcc hoists the probe's table reads, whose address does not change
+// between windows, out of the window loop, and the 216 words of select's
+// 9 entries live in registers and spill (340-352 B).
+FE32_FN uint32_t opaque(uint32_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(v));
+#endif
+  return v;
+}
+
+// ladder_probe's variants: the ladder body with its parts switched on one at
+// a time (tools/profile_ladder.py)
+enum ProbeVariant { PROBE_BARE, PROBE_UNROLL, PROBE_BUILD, PROBE_SELECT, PROBE_NEGATE,
+                    PROBE_VARIANTS };
+
+// ladder_probe: ladder_lane's body for one base (bases [3, NL, B] 13-bit rows;
+// mag, neg [nw, 2, B]; out [3, NL, B], canonical), variant V. The lane puts
+// O and Q into its table (word j of entry k at tbl[(k 3N + j) * stride], the
+// kernel's shared memory), from PROBE_BUILD on also 2Q .. 8Q (7 adds); from
+// O, per window 4 doublings (unrolled in PROBE_UNROLL), then for h = 0, 1 an
+// add of entry 1 read from the table (PROBE_BARE .. PROBE_BUILD), of the
+// masked select by mag[w, h] (PROBE_SELECT), with y negated where neg[w, h]
+// (PROBE_NEGATE); the table is read on each term, as the ladder's.
+template <class C, int V>
+FE32_FN void ladder_probe_lane(const uint32_t* __restrict__ bases,
+                               const uint32_t* __restrict__ mag,
+                               const uint32_t* __restrict__ neg, uint32_t* __restrict__ out,
+                               uint32_t* __restrict__ tbl, uint32_t stride, int nw, int B,
+                               int lane) {
+  constexpr uint32_t PN = 3 * C::N;
+  const uint32_t Bw = (uint32_t)B;
+  const Pt<C> q = load_point<C>(bases + lane, Bw);
+  put_point<C>(identity<C>(), tbl, stride);
+  put_point<C>(q, tbl + PN * stride, stride);
+  if constexpr (V >= PROBE_BUILD) {
+    Pt<C> cur = q;
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int k = 2; k < TBL; ++k) {
+      cur = padd<C>(cur, q);
+      put_point<C>(cur, tbl + k * PN * stride, stride);
+    }
+  }
+  Pt<C> acc = identity<C>();
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int w = 0; w < nw; ++w) {
+    if constexpr (V == PROBE_UNROLL) {
+      FE32_UNROLL for (int d = 0; d < 4; ++d) acc = pdouble<C>(acc);
+    } else {
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+      for (int d = 0; d < 4; ++d) acc = pdouble<C>(acc);
+    }
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t dg = ((uint32_t)w * 2 + h) * Bw + lane;
+      const uint32_t* tb = tbl + opaque(0u);   // the table, read on each term
+      Pt<C> s;
+      if constexpr (V >= PROBE_SELECT) {
+        s = select_point<C>(tb, stride, mag[dg]);
+      } else {
+        s = get_point<C>(tb + PN * stride, stride);
+      }
+      if constexpr (V == PROBE_NEGATE) s.y = cneg<C>(s.y, neg[dg] != 0u);
+      acc = padd<C>(acc, s);
     }
   }
   store_point<C>(acc, out + lane, Bw);

@@ -25,24 +25,28 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Eight of them, `padd_chain`, `segscan`,
-`ladder`, `genmul`, `bucket_reduce`, `horner`, `pow` and `fixup`
-(FE32_KERNELS), run on the hand-written 32-bit field layer (csrc/fe32.cuh,
-csrc/point32.cuh): they convert their 13-bit rows to 8 words an element on
-load, keep the point or element in registers, and store canonical 13-bit
-limbs; their generated header holds only constants (`kfe.fe32_header`:
-the curve's `Curve32`, with the GLV beta where the curve has an
-endomorphism, and its scalar field's `Scalar32`, on which `pow` runs for
-field 1). `ladder` builds its tables [O, Q, .., 8Q] in shared memory
-(`ladder_lanes`), `genmul` converts the comb into shared memory once a
-block, `pow` keeps its table x..x^15 in shared memory, `bucket_reduce` and
-`fixup` keep their points as words in a scratch between their steps. The
-others (`padd`, `pdouble` and the probes) call straight-line field and
-point functions that ops/kfe.py generates from the KFE bound ledger into a
-header per (target, kernel). A target is a curve (the a = 0 formulas for secp256k1, the a = -3
-ones for P-256 and the other a = -3 curves), a bare field spec
-(`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
-None (`dma_gather`, which has no generated header). The
+[.., n, B] uint32 arrays. Nine of them, `padd_chain`, `segscan`,
+`ladder`, `genmul`, `bucket_reduce`, `horner`, `pow`, `fixup` and the
+probe `ladder_probe` (FE32_KERNELS), run on the hand-written 32-bit field
+layer (csrc/fe32.cuh, csrc/point32.cuh): they convert their 13-bit rows to
+8 words an element on load, keep the point or element in registers, and
+store canonical 13-bit limbs; their generated header holds only constants
+(`kfe.fe32_header`: the curve's `Curve32`, with the GLV beta where the
+curve has an endomorphism, and its scalar field's `Scalar32`, on which
+`pow` runs for field 1). `ladder` and `ladder_probe` build their tables
+[O, Q, .., 8Q] in shared memory (`ladder_lanes`; the probe's one table a
+lane at PROBE_LANES lanes a block), `genmul` converts the comb into shared
+memory once a block, `pow` keeps its table x..x^15 in shared memory,
+`bucket_reduce` and `fixup` keep their points as words in a scratch
+between their steps. `padd`, `pdouble`, `fmul_chain` and `mxu_chain` call
+straight-line field and point functions that ops/kfe.py generates from the
+KFE bound ledger into a header per (target, kernel). A target is a curve
+(the a = 0 formulas for secp256k1, the a = -3 ones for P-256 and the other
+a = -3 curves), a bare field spec (`fmul_chain`, `mxu_chain`: its
+multiply, its limb count and width), or None (`dma_gather`, which has no
+generated header: a ring of `cp.async.bulk` row copies in each warp's
+shared memory, GATHER_WARPS warps a block, at most GATHER_ROWS rows a
+warp). The
 build is nvcc by hand into a shared library with a plain C interface, bound
 with ctypes, at first use (or by `build_targets`) into build/kernels/ beside
 the package; a content hash of the source, the csrc/ headers it includes,
@@ -53,7 +57,7 @@ Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the eight
+so a kernel's output equals its twin's limb for limb; for the nine
 kernels on the 32-bit layer, `pow`'s element and each projective
 coordinate of the others equal the twin's mod p (the same operations in
 the same order; the limb plan differs, and the kernels store canonical
@@ -133,13 +137,12 @@ KERNELS = {
     "mxu_chain": ("mxu_chain.cu", (), "mxu_chain_launch",
                   [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I],
                   "tools/bench_mxu_mul.py:232"),
-    "ladder_probe": ("ladder_probe.cu", ("padd", "pdouble", "fp_neg"),
-                     "ladder_probe_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I],
-                     "tools/profile_ladder.py:72"),
+    "ladder_probe": ("ladder_probe.cu", (), "ladder_probe_launch",
+                     [_VP, _VP, _VP, _VP, _I, _I, _I], "tools/profile_ladder.py:72"),
 }
 
 FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul", "bucket_reduce", "horner", "pow",
-                "fixup")
+                "fixup", "ladder_probe")
 """The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -149,6 +152,9 @@ LADDER_LANES = 32   # the most lanes a block of `ladder`
 GENMUL_LANES = 32   # the lanes a block of `genmul` (csrc/genmul.cu THREADS)
 POW_LANES = 32      # the lanes a block of `pow` (csrc/pow.cu POW_THREADS)
 FIXUP_LANES = 128   # the lanes a block of `fixup` (csrc/fixup.cu FIXUP_THREADS)
+PROBE_LANES = 64    # the lanes a block of `ladder_probe` (csrc/ladder_probe.cu PROBE_THREADS)
+GATHER_WARPS = 4    # the warps a block of `dma_gather` (csrc/dma_gather.cu GATHER_WARPS)
+GATHER_ROWS = 32    # the most rows a warp of `dma_gather` gathers (GATHER_ROWS)
 CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
 PROBE_VARIANTS = ("bare", "unroll", "build", "select", "negate")
 
@@ -781,10 +787,12 @@ def dma_gather(payload: torch.Tensor, idx: torch.Tensor, Cb: int,
                depth: int) -> torch.Tensor:
     """The XOR of the rows payload[idx] -> [1, W]: payload int32 [N, W]
     (uint32 bits), idx int32 [M], M a multiple of Cb, Cb of depth. The
-    kernel takes a chunk of Cb indices per block and keeps `depth` row
-    copies in flight; the result does not depend on Cb or depth. An index
-    outside [0, N) stops the kernel with a device fault, as index_select's
-    device assertion does."""
+    kernel splits each chunk of Cb indices into runs of at most GATHER_ROWS
+    rows, one run a warp (Cb bounds a run; the warps on the card do not
+    follow it), and keeps `depth` row copies in flight in each warp's ring;
+    the result does not depend on Cb or depth. An index outside [0, N)
+    stops the kernel with a device fault, as index_select's device
+    assertion does."""
     M = idx.shape[0]
     N, W = payload.shape
     if Cb <= 0 or depth <= 0 or M % Cb or Cb % depth:
@@ -793,6 +801,11 @@ def dma_gather(payload: torch.Tensor, idx: torch.Tensor, Cb: int,
     if (W * 4) % 16 or W > 1024:
         raise ValueError(f"dma_gather: a row must be a multiple of 16 bytes and at "
                          f"most 1024 words, got W={W}")
+    parts = -(-Cb // GATHER_ROWS)
+    ring = depth * (4 * W + 8) + 4 * -(-Cb // parts) + 4 * W    # one warp's, and the fold
+    if ring > SMEM_BLOCK:
+        raise ValueError(f"dma_gather: a ring of depth {depth} rows of {W} words takes "
+                         f"{ring} B, above the {SMEM_BLOCK} B a block can hold")
     if payload.device.type == "cpu":
         return dma_gather_plain(payload, idx)
     _check(payload, (N, W), "dma_gather payload")
@@ -934,7 +947,9 @@ def ladder_probe(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     entry 1 (`bare`, `unroll`, `build`) or entry mag[w, h] (`select`,
     `negate`); `negate` negates y where neg[w, h] is set; from `build` on
     the kernel builds the table's entries 2-8 (7 adds), though only
-    `select` and `negate` read them (the twin builds them only there)."""
+    `select` and `negate` read them (the twin builds them only there). The
+    kernel (on the 32-bit layer, the table in shared memory) returns each
+    coordinate canonical: equal mod p to the twin's."""
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"ladder_probe: variant must be one of {PROBE_VARIANTS}")
     if bases.device.type == "cpu":
@@ -944,12 +959,12 @@ def ladder_probe(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     _check(bases, (3, n, B), "ladder_probe bases")
     _check(mag, (nw, 2, B), "ladder_probe mag")
     _check(neg, (nw, 2, B), "ladder_probe neg")
+    _check_words(bases, "ladder_probe bases")
+    _check_words(mag, "ladder_probe mag")
     b32, m32, g32 = _u32(bases), _u32(mag), _u32(neg)
     out = torch.empty((3, n, B), dtype=torch.int32, device=bases.device)
-    tbl = torch.empty((TBL, 3, n, B), dtype=torch.int32, device=bases.device)
     _launch("ladder_probe", curve, bases.device, b32.data_ptr(), m32.data_ptr(),
-            g32.data_ptr(), out.data_ptr(), tbl.data_ptr(), nw,
-            PROBE_VARIANTS.index(variant), B)
+            g32.data_ptr(), out.data_ptr(), nw, PROBE_VARIANTS.index(variant), B)
     return _from_u32(out)
 
 
@@ -1197,4 +1212,18 @@ def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
         # launch loads lead, adds once a lane and stores
         ops = total((6 * B, c["load"]), (kw["adds"] + B, c["padd"]), (3 * B, c["store"]))
         return ops, (3 * pn + 2) * 4 * B
+    if name == "ladder_probe":
+        nw, variant = kw["nw"], kw["variant"]
+        built = variant not in ("bare", "unroll")
+        selects = variant in ("select", "negate")
+        negates = variant == "negate"
+        # per lane: the base's load, 7 adds from build on; per window 4
+        # doublings and 2 adds, per term the select (select, negate) and
+        # the sign's negation (negate); the store
+        ops = total((3 * B, c["load"]), ((7 if built else 0) * B, c["padd"]),
+                    (4 * nw * B, c["pdouble"]), (2 * nw * B, c["padd"]),
+                    (2 * nw * B if selects else 0, c["select_point"]),
+                    (2 * nw * B if negates else 0, c["cneg"]), (3 * B, c["store"]))
+        words = 2 * pn + (2 * nw if selects else 0) + (2 * nw if negates else 0)
+        return ops, words * 4 * B
     raise KeyError(f"{name} does not run on the 32-bit layer")

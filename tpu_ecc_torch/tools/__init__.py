@@ -10,7 +10,8 @@ returns them. `bench_imad_wide`, `bench_ladder_forms` and `bench_blocks`,
 the port's own, run on the card only: the first measures the IMAD.WIDE.U32
 rate that the 32-bit layer's bound assumes, the second the ladder kernel's
 launch forms (csrc/ladder.cu builds each field's in the form it found
-fastest), the third the block sizes of bucket_reduce, pow and fixup.
+fastest), the third the block sizes of bucket_reduce, pow, fixup and
+ladder_probe, and dma_gather's warps a block and rows a warp.
 """
 
 from __future__ import annotations

@@ -1,19 +1,27 @@
 """Block sizes of the kernels that take theirs from a macro: registers,
 spills and time on the card.
 
-csrc/bucket_reduce.cu, csrc/pow.cu and csrc/fixup.cu take their threads a
-block from BUCKET_THREADS, POW_THREADS and FIXUP_THREADS, which their
-__launch_bounds__ follow (and pow's table stride). This builds each named
-kernel at each size in SIZES (nvcc -D<macro>=k, one process each, all
-started together), prints ptxas's registers and spills for each, holds each
-against its plain twin by canonical values mod p at the main path's shapes,
-and times them in turns through the kernel's wrapper (ROUNDS rounds, the
-order reversed in every other):
+csrc/bucket_reduce.cu, csrc/pow.cu, csrc/fixup.cu and csrc/ladder_probe.cu
+take their threads a block from BUCKET_THREADS, POW_THREADS, FIXUP_THREADS
+and PROBE_THREADS, which their __launch_bounds__ follow (and pow's and
+ladder_probe's table stride); csrc/dma_gather.cu its warps a block and the
+most rows a warp gathers from GATHER_WARPS and GATHER_ROWS. This builds
+each named kernel in each of its forms (`forms`: 32, 64 and 128 threads;
+for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows; nvcc
+-D<macro>=k, one process each, all started together), prints ptxas's
+registers and spills for each, holds each against its plain twin (by
+canonical values mod p; dma_gather exactly) at the main path's or the
+tool's shapes, and times them in turns through the kernel's wrapper
+(ROUNDS rounds, the order reversed in every other):
 
     bucket_reduce  secp256k1, nbuck = 8192, 8 and 3 windows
     pow            secp256k1 and P-256, each field, e = p - 2, B = 4096
     fixup          secp256k1, 8 and 3 windows of 8192 lanes, keys as the
                    MSM's 2^20 points sort them (C = 128 rows a lane)
+    ladder_probe   secp256k1, the five variants, B = 4096, 34 windows
+                   (profile_ladder's inputs)
+    dma_gather     N = 2^20, W = 128, M = 2^18 (bench_gather_probe's
+                   payload), Cb = 4096 at depth 8, 2 and 16, Cb = 256 at 8
 
 For fixup it then times, at the size the source builds by default, the C
 entry alone (inputs converted and the scratch allocated once) against the
@@ -22,6 +30,7 @@ events around back-to-back calls and by torch.profiler's device time of
 the calls' launches.
 
     python3 -m tpu_ecc_torch.tools.bench_blocks [bucket_reduce] [pow] [fixup]
+        [ladder_probe] [dma_gather]
 """
 
 from __future__ import annotations
@@ -41,20 +50,33 @@ from ..ops import kernels as K
 from ..ops import kfe
 from ..ops import points as P
 from ..utils import ec_host as H
-from . import device_label
+from . import bench_gather_probe, device_label, profile_ladder
 
-MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIXUP_THREADS"}
+MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIXUP_THREADS",
+          "ladder_probe": "PROBE_THREADS"}
 SIZES = (32, 64, 128)
+GATHER_WARPS, GATHER_ROWS = (4, 8, 16), (32, 64, 128)
+SWEPT = (*MACROS, "dma_gather")
 NBUCK, WINDOWS, LANES, ROWS = 8192, (8, 3), 8192, 128
-POW_B = 4096
+POW_B, LADDER_B = 4096, 4096
+GATHER_N, GATHER_W, GATHER_M = 1 << 20, 128, 1 << 18
+GATHER_SHAPES = ((4096, 8), (4096, 2), (4096, 16), (256, 8))     # (Cb, depth)
 ROUNDS, REPS = 8, 5          # rounds in turns; calls a timing
 
 
+def forms(name: str) -> list:
+    """(label, {macro: value}) of each build of kernel `name`."""
+    if name == "dma_gather":
+        return [(f"{w} warps x {r} rows", {"GATHER_WARPS": w, "GATHER_ROWS": r})
+                for w in GATHER_WARPS for r in GATHER_ROWS]
+    return [(f"{k} threads", {MACROS[name]: k}) for k in SIZES]
+
+
 def build(targets) -> dict:
-    """{(kernel, curve name, block size): (library path, nvcc's report)}
-    for targets = [(kernel, curve)], each at every size, built under
-    kernels.BUILD_DIR and named by a hash of the sources, the header, the
-    flags and the size."""
+    """{(kernel, target name, form label): (library path, nvcc's report)}
+    for targets = [(kernel, curve or None)], each in every form, built
+    under kernels.BUILD_DIR and named by a hash of the sources, the header,
+    the flags and the form."""
     jobs = {}
     for name, curve in targets:
         src_file = K.KERNELS[name][0]
@@ -63,17 +85,18 @@ def build(targets) -> dict:
             with open(os.path.join(K.CSRC, f)) as fh:
                 texts.append(fh.read())
         header = K._header(name, curve)
-        for size in SIZES:
-            flags = (*K.NVCC_FLAGS, f"-D{MACROS[name]}={size}")
+        tname = K.target_name(curve)
+        for label, defs in forms(name):
+            flags = (*K.NVCC_FLAGS, *(f"-D{m}={v}" for m, v in defs.items()))
             key = hashlib.sha256("\0".join((header, *texts) + flags).encode()).hexdigest()[:16]
-            d = os.path.join(K.BUILD_DIR, f"{curve.name}-{name}-blocks-{key}")
+            d = os.path.join(K.BUILD_DIR, f"{tname}-{name}-blocks-{key}")
             os.makedirs(d, exist_ok=True)
             with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
                 fh.write(header)
             so = os.path.join(d, f"lib{name}.so")
             cmd = [K._nvcc(), *flags, "-I", d, "-I", K.CSRC, "-o", so,
                    os.path.join(K.CSRC, src_file)]
-            jobs[name, curve.name, size] = (so, subprocess.Popen(
+            jobs[name, tname, label] = (so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for key, (so, proc) in jobs.items():
@@ -100,7 +123,10 @@ def _entry(so: str, name: str):
 
 def _canonical(spec, limbs: torch.Tensor) -> torch.Tensor:
     """Each element's canonical limbs; limbs [.., n, ..] with the limb axis
-    first for an element, second for a point [3, n, ..]."""
+    first for an element, second for a point [3, n, ..]. With spec None
+    (dma_gather's words) the tensor itself."""
+    if spec is None:
+        return limbs
     if limbs.shape[0] == 3 and limbs.shape[1] == spec.n_limbs:
         return torch.stack([_canonical(spec, limbs[c]) for c in range(3)], 0)
     return F.fcanonical(F.fe_steady(spec, limbs.to(torch.int64))).limbs
@@ -132,7 +158,8 @@ def _fixup_inputs(curve, windows: int, dev):
 
 
 def cases(names, dev) -> list:
-    """(kernel, curve, label, run(), the twin's canonical values, spec)."""
+    """(kernel, curve or None, label, run(), the twin's canonical values,
+    spec or None)."""
     out = []
     k256, p256 = get_curve("secp256k1"), get_curve("p256")
     if "bucket_reduce" in names:
@@ -157,6 +184,25 @@ def cases(names, dev) -> list:
             out.append(("fixup", k256, f"{g} windows",
                         lambda args=args: K.fixup(k256, *args),
                         _canonical(k256.field, K.fixup_plain(k256, *args)), k256.field))
+    if "ladder_probe" in names:
+        bases, mag, neg = profile_ladder.inputs(k256, LADDER_B, dev)
+        twins = {}       # unroll and build give bare's values
+        for variant in K.PROBE_VARIANTS:
+            key = variant if variant in ("select", "negate") else "bare"
+            if key not in twins:
+                twins[key] = _canonical(k256.field, K.ladder_probe_plain(k256, bases, mag, neg,
+                                                                         key))
+            out.append(("ladder_probe", k256, variant,
+                        lambda v=variant: K.ladder_probe(k256, bases, mag, neg, v),
+                        twins[key], k256.field))
+    if "dma_gather" in names:
+        pay = bench_gather_probe.device_payload(GATHER_N, GATHER_W, dev)
+        idx = torch.from_numpy(np.random.default_rng(1).permutation(GATHER_N)
+                               .astype(np.int32)[:GATHER_M]).to(dev)
+        want = K.dma_gather_plain(pay, idx)
+        for Cb, depth in GATHER_SHAPES:
+            out.append(("dma_gather", None, f"Cb={Cb} depth={depth}",
+                        lambda Cb=Cb, depth=depth: K.dma_gather(pay, idx, Cb, depth), want, None))
     return out
 
 
@@ -229,48 +275,49 @@ def fixup_alone(so: str, dev) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Returns {kernel: {block size: {"ptxas": [...], "ms": {label: median
-    ms}}}}, ms the median over the rounds of the mean of REPS calls, and
-    under "fixup_alone" the C entry against the wrapper."""
-    names = list(sys.argv[1:] if argv is None else argv) or list(MACROS)
-    if any(n not in MACROS for n in names):
-        raise SystemExit(f"bench_blocks: kernels are {list(MACROS)}")
+    """Returns {kernel: {form label: {"ptxas": [...], "ms": {case label:
+    median ms}}}}, ms the median over the rounds of the mean of REPS
+    calls, and under "fixup_alone" the C entry against the wrapper."""
+    names = list(sys.argv[1:] if argv is None else argv) or list(SWEPT)
+    if any(n not in SWEPT for n in names):
+        raise SystemExit(f"bench_blocks: kernels are {list(SWEPT)}")
     if not torch.cuda.is_available():
         raise SystemExit("bench_blocks: no CUDA device")
     dev = torch.device("cuda")
     todo = cases(names, dev)
-    built = build(sorted({(k, c.name): (k, c) for k, c, *_ in todo}.values(),
-                         key=lambda t: (t[0], t[1].name)))
-    print(f"device: {device_label(dev)}; block sizes {SIZES}, {ROUNDS} rounds in turns, "
-          f"{REPS} calls a timing", flush=True)
+    built = build(sorted({(k, K.target_name(c)): (k, c) for k, c, *_ in todo}.values(),
+                         key=lambda t: (t[0], K.target_name(t[1]))))
+    print(f"device: {device_label(dev)}; {ROUNDS} rounds in turns, {REPS} calls a timing",
+          flush=True)
     entries = {key: _entry(so, key[0]) for key, (so, _) in built.items()}
     result = {}
     for name, curve, label, run, want, spec in todo:
-        ms = {size: [] for size in SIZES}
-        for size in SIZES:
-            K._bound[name, curve.name] = entries[name, curve.name, size]
+        tname, labels = K.target_name(curve), [f for f, _ in forms(name)]
+        ms = {form: [] for form in labels}
+        for form in labels:
+            K._bound[name, tname] = entries[name, tname, form]
             got = run()
             torch.cuda.synchronize()
             if not torch.equal(_canonical(spec, got), want):
-                raise AssertionError(f"{name} {label} at {size} differs from its twin mod p")
+                raise AssertionError(f"{name} {label} at {form} differs from its twin")
         for r in range(ROUNDS):
-            for size in (SIZES if r % 2 == 0 else SIZES[::-1]):
-                K._bound[name, curve.name] = entries[name, curve.name, size]
-                ms[size].append(_events_ms(run, REPS))
+            for form in (labels if r % 2 == 0 else labels[::-1]):
+                K._bound[name, tname] = entries[name, tname, form]
+                ms[form].append(_events_ms(run, REPS))
         row = result.setdefault(name, {})
-        for size in SIZES:
-            lines = ptxas_lines(built[name, curve.name, size][1])
-            row.setdefault(size, {"ptxas": lines, "ms": {}})["ms"][label] = float(
-                np.median(ms[size]))
-        print(f"  {name} [{label}]: each size equal mod p to its twin; median ms "
-              + ", ".join(f"{s} threads {np.median(v):.4f}" for s, v in ms.items()), flush=True)
-        del K._bound[name, curve.name]
+        for form in labels:
+            lines = ptxas_lines(built[name, tname, form][1])
+            row.setdefault(form, {"ptxas": lines, "ms": {}})["ms"][label] = float(
+                np.median(ms[form]))
+        print(f"  {name} [{label}]: each form equal to its twin; median ms "
+              + ", ".join(f"{f} {np.median(v):.4f}" for f, v in ms.items()), flush=True)
+        del K._bound[name, tname]
     for name, row in result.items():
-        for size, r in row.items():
-            print(f"  {name} at {size} threads: ptxas {' | '.join(r['ptxas'])}", flush=True)
+        for form, r in row.items():
+            print(f"  {name} at {form}: ptxas {' | '.join(r['ptxas'])}", flush=True)
     if "fixup" in names:
         result["fixup_alone"] = fixup_alone(
-            built["fixup", "secp256k1", K.FIXUP_LANES][0], dev)
+            built["fixup", "secp256k1", f"{K.FIXUP_LANES} threads"][0], dev)
         del K._bound["fixup", "secp256k1"]
     return result
 

@@ -10,13 +10,16 @@ The port of the JAX repo's tools/bench_gather_probe.py. Two probes:
    a third faster.
 2. `bench_dma_gather`: the `dma_gather` kernel (ops/kernels.py,
    csrc/dma_gather.cu) at W = 128 and depth 2, 8 and 16: one
-   `cp.async.bulk` copy per row, `depth` in flight in each block of Cb =
-   4096 indices, the rows XORed together; then at depth 8 with Cb = 1024
-   and 256. Its rate is the ceiling of a gather fused into segscan: below
-   the library's rows/s, fusing the gather cannot beat sort -> gather ->
-   segscan. The TPU tool's Cb = 4096 made 64 steps of a sequential grid;
-   on the card it makes 64 blocks, which leave half the SMs idle, so the
-   smaller chunks show what the copies do with enough blocks in flight.
+   `cp.async.bulk` copy per row, `depth` in flight in each warp's ring,
+   the rows XORed together, over chunks of Cb = 4096 indices; then at
+   depth 8 with Cb = 1024 and 256. Its rate is the ceiling of a gather
+   fused into segscan: below the library's rows/s, fusing the gather
+   cannot beat sort -> gather -> segscan. The TPU tool's Cb = 4096 made
+   64 steps of a sequential grid. On the card Cb decides only how a chunk
+   splits: into runs of at most kernels.GATHER_ROWS rows, one a warp, so
+   the card holds the same warps, and copies in flight, at every Cb (at M
+   = 2^18 and 32 rows a run, 8192 warps); the smaller chunks show that
+   the rate no longer follows Cb.
 
     python3 -m tpu_ecc_torch.tools.bench_gather_probe [rows] [--device cpu]
 
@@ -35,7 +38,7 @@ from ..ops import kernels as K
 from . import device_label, parse, sync
 
 REP = 8          # dependent gathers per timed chain
-CB = 1 << 12     # indices per block of the kernel
+CB = 1 << 12     # indices per chunk of the kernel
 
 
 def device_payload(N: int, W: int, device) -> torch.Tensor:
