@@ -3,37 +3,44 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (csrc/, sm_90a) from the checkout, one nvcc per
-   source and target, all started together (23 in all): the ten of the
-   main path for secp256k1, the six of the P-256 path (padd, pdouble,
-   padd_chain, pow, ladder, genmul) for p256, and the seven of the probes
-   (dma_gather; fmul_chain for the fields of secp256k1, P-256 and
-   secp256k1 forced onto Montgomery, k256mxu.fp; mxu_chain for the two
-   Montgomery fields; ladder_probe for secp256k1); then the native signing
-   code (g++). Prints the seconds it took and ptxas's registers and stack
-   for each. The kernels on the 32-bit field layer (padd_chain, ladder,
-   genmul and pow for both curves, pow on both fields; segscan, fixup,
-   bucket_reduce, horner, ladder_probe's five variants) and dma_gather
-   must show 0 bytes of spill stores and loads; for each, the instructions
-   of its loop bodies in the built SASS (cuobjdump -sass; pow's for each
-   field, ladder_probe's for each variant; bucket_reduce's tree step and
-   fixup's step, which have no loop, whole), by class, print beside the
-   count of kernels.work's "fe32" design.
+   source and target, all started together: the ten of the main path for
+   secp256k1, the six of the P-256 path (padd, pdouble, padd_chain, pow,
+   ladder, genmul) for p256, and the seven of the probes (dma_gather;
+   fmul_chain for the fields of secp256k1, P-256 and secp256k1 forced onto
+   Montgomery, k256mxu.fp; mxu_chain for the two Montgomery fields;
+   ladder_probe for secp256k1); the ten of the main path for P-384 (N = 12
+   words); pow, ladder, genmul, padd and pdouble for P-521 (N = 17), P-224
+   (7), P-192 (6), SM2, bign256, bp256t1 (8) and bp384t1 (12); pow for
+   bp256r1 and bp384r1 (padd is padd_chain's library at one add: one build
+   serves both); then the native signing code (g++). Prints the seconds it
+   took and ptxas's registers and stack for each library. The kernels on
+   the 32-bit field layer at N = 8 words and dma_gather must show 0 bytes
+   of spill stores and loads (a build at N = 6, 7, 12 or 17 prints its
+   spill); for the secp256k1 and P-256 builds, and P-384's and P-521's
+   ladder and pow, the instructions of the loop bodies in the built SASS
+   (cuobjdump -sass; pow's for each field, ladder_probe's for each variant;
+   bucket_reduce's tree step and fixup's step, which have no loop, whole),
+   by class, print beside the count of kernels.work's "fe32" design. Then
+   it makes the inputs of the new curves' holds (step 10) and hands their
+   twins to TWIN_WORKERS processes, which compute them on the CPU while
+   steps 2-6 run.
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
    for the kernels on the 32-bit layer, which store canonical values, zero
    difference between the canonical limbs of pow's element and of each
    projective coordinate of the others, segscan's `scanned` at its run-end
    rows only; each such hold prints its warps a scheduler): padd_chain at
-   B = 8192, repeat 16; pow on the scalar
-   field (e = n - 2) and the base field (e = p - 2) at B = 4096; ladder with
-   glv=True, T = 2 at B = 4096, with glv=False, T = 1 (65 windows), and at
-   the Straus MSM's shape (T = 8 with GLV at the 512 lanes msm() gives 4096
-   points); genmul (the comb k*G) at B = 4096, 65 windows, on random
-   scalars plus 0 and n - 1; padd and
-   pdouble at B = 8192. Then the P-256 builds at the P-256 path's shapes:
-   padd and pdouble, padd_chain at B = 8192, repeat 16, pow on both fields
-   at B = 4096, ladder with T = 2 and no GLV (65 windows) at B = 4096, and
-   genmul at B = 4096.
+   B = 8192, repeat 16, on secp256k1, P-256 and P-384; padd and pdouble at
+   B = 8192 on the ten curves, on the inputs of the single point
+   operations of step 5; pow on the scalar field (e = n - 2) and the base
+   field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at B = 4096,
+   with glv=False, T = 1 (65 windows), and at the Straus MSM's shape (T =
+   8 with GLV at the 512 lanes msm() gives 4096 points); genmul (the comb
+   k*G) at B = 4096, 65 windows, on random scalars plus 0 and n - 1. Then
+   the P-256 and P-384 builds at their paths' shapes (`curve_holds`: pow
+   on both fields, the verify's ladder with T = 2 and no GLV on all the
+   scalar's windows, 65 or 97, and genmul, each at B = 4096, a core
+   call's width), all by canonical values mod p.
 3. Verify: `verify_batch` on secp256k1 over 8192 signatures in two chunks,
    about a quarter of them tampered, run 7 times; every boolean must match
    in every run. Prints each run's verifies/s and their median, and the
@@ -50,32 +57,38 @@
 5. The headline: padd_chain adds/s at B = 8192, repeat 16, by chain-length
    differencing (the extra work of a longer chain over its extra time), and
    a check of the chain's result against the host oracle. Then the single
-   point operations `padd_points` and `pdouble_points` at B = 8192 on both
-   curves (the padd and pdouble kernels), 8 lanes each against the host
-   oracle.
+   point operations `padd_points` and `pdouble_points` at B = 8192 on the
+   ten curves (the padd and pdouble kernels), 8 lanes each against the
+   host oracle.
 6. P-256: steps 3-5 again on P-256 (sha256, not low-s; the verify's
    lincomb on the two-term ladder without GLV, 65 windows), with the same
    sizes, checks and run counts, except that the signatures are the host
    oracle's without low-s folding.
-7. MSM: 2^20 points P_i = a_i*G made on the card (`derive_public_batch`)
-   and full-width k_i, from a seed. Holds the four Pippenger phase kernels
-   against their twins on the card at the shapes the first group of
-   windows gives them (segscan signed and unsigned, fixup and
-   bucket_reduce also at the last group's 3 windows, bucket_reduce with
-   and without drop0, horner on the 19 window sums; fixup, bucket_reduce
-   and horner by canonical coordinates, and horner's one-thread bound in
-   both designs' counts). Then `msm()`
-   (signed, w = 14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one
-   host `aff_mul`, with every phase kernel launched; the device core
-   (packed tensors in, point out, closed by a synchronize) runs 5 times. A
-   Straus `msm()` at 4096 points is checked the same way, with the ladder
-   launched. Last, one core run under torch.profiler gives the device time
-   of each step of msm_pippenger (its `msm/<step>` ranges).
-8. Prints the card's name and power limit, a `kernels` JSON line (each
-   kernel and build: its launches on the main path or per tool run, its
-   error against its twin, its time, its twin's time, its bound and, for
-   dma_gather, the time of index_select over the same rows), and last a
-   JSON line with the device.
+10. The new curves (after step 6): P-384's path, steps 3-5 at the same
+   sizes and checks, P384_RUNS runs each; then the holds of the other new
+   builds at their path's shapes, B = WIDE_COUNT lanes (pow on both
+   fields, the verify's ladder on all the scalar's windows, 49 to 132,
+   genmul on all the comb's), their twins those the workers computed on
+   the CPU; and on P-521, P-224, P-192, SM2, bign256, bp256t1 and bp384t1
+   steps 3-4 at WIDE_COUNT signatures, one run each (P-192 verify-only:
+   verify and derive); finv on both fields of bp256r1 and bp384r1 at
+   WIDE_COUNT (pow alone: their generic-a formulas are not ported).
+7. MSM (`msm_phase`): 2^20 points P_i = a_i*G made on the card
+   (`derive_public_batch`) and full-width k_i, from a seed. Holds the four
+   Pippenger phase kernels against their twins on the card at the shapes
+   the first group of windows gives them (segscan signed and unsigned,
+   fixup and bucket_reduce also at the last group's 3 windows,
+   bucket_reduce with and without drop0, horner on the 19 window sums;
+   fixup, bucket_reduce and horner by canonical coordinates, and horner's
+   one-thread bound in both designs' counts). Then `msm()` (signed, w =
+   14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one host
+   `aff_mul`, with every phase kernel launched; the device core (packed
+   tensors in, point out, closed by a synchronize) runs 5 times. A Straus
+   `msm()` at 4096 points is checked the same way, with the ladder
+   launched. Then one core run under torch.profiler gives the device time
+   of each step of msm_pippenger (its `msm/<step>` ranges). Last, the same
+   phase on P-384 at 2^16 points (its 28 windows in one group; no
+   variants).
 9. Probes (run after step 7, before the record of step 8): holds the four
    probe kernels against their twins at the tools' shapes (exact): dma_gather
    (N = 2^20, W = 128, M = 2^18, Cb = 4096 at depth 8, 2 and 16, and Cb =
@@ -87,19 +100,28 @@
    Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
    default sizes, each with the counts set to 0 just before and read just
    after, and prints what each probe answered.
+8. Prints the build's and the whole run's seconds, the card's name and
+   power limit, a `kernels` JSON line (each kernel and build: its launches
+   on its path or per tool run, its error against its twin, its time, its
+   twin's time (a worker's on the CPU for the twins of step 10's holds),
+   its bound and, for dma_gather, the time of index_select over the same
+   rows), and last a JSON line with the device.
 
 Any mismatch or fault raises, so the exit code is not 0. Without a CUDA
-device it exits with code 1 and prints no result.
+device it exits with code 1 and prints no result. The worker processes
+end with the run.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -121,7 +143,9 @@ WIDE_SLOTS = 2
 SMS = 132
 VERIFY_RUNS = 7
 RUNS = 7          # sign, derive and recover
-SIGNS = 8192
+SIGNS = 8192      # the ECDSA batch, in chunks of CHUNK
+CHUNK = 4096      # protocols/pipeline.py DEFAULT_CHUNK: the lanes of a core call's kernels
+POINT_B = 8192    # the point-add chain's and the single point operations' lanes
 SAMPLE = 256
 MSM_POINTS = 1 << 20
 MSM_RUNS = 5
@@ -275,14 +299,16 @@ def sass_class(op: str) -> str:
     return "control"
 
 
-SASS_FUNCTION = {"ladder": ("ladder_kernelILi32E|ladder_mont_kernel",),
+SASS_FUNCTION = {"padd": ("padd_chain_kernel",),
+                 "ladder": ("ladder_kernelILi32E|ladder_mont_kernel",),
                  "bucket_reduce": ("bucket_reduce_pair_kernelILb0E",),
                  "pow": ("pow_kernelI7Curve32E", "pow_kernelI8Scalar32E"),
                  "fixup": ("fixup_step_kernelILb0E",),
                  "ladder_probe": tuple(f"ladder_probe_kernelILi{v}E" for v in range(5))}
 """The functions whose SASS `sass_loop_counts` reads, where they are not
 `<kernel>_kernel`, each of them in every build ("a|b": a in one build, b in
-another): the ladder's instance for full blocks (csrc/ladder.cu: the
+another): padd's, the chain's library at one add; the ladder's instance
+for full blocks (csrc/ladder.cu: the
 solinas or the Montgomery form); bucket_reduce's tree step from words to
 words, one add; pow's instance for each field; fixup's step from words to
 words, one add; ladder_probe's five variants (kernels.PROBE_VARIANTS)."""
@@ -363,7 +389,7 @@ def signatures(curve, count: int, distinct: int, seed: int, low_s: bool = True):
     rng = np.random.default_rng(seed)
     base = []
     for _ in range(distinct):
-        d, z, k = (int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1
+        d, z, k = (int.from_bytes(rng.bytes(curve.scalar_bytes), "big") % (curve.n - 1) + 1
                    for _ in range(3))
         pub = H.aff_mul(curve, d, H.aff_generator(curve))
         base.append((pub, z, H.ecdsa_sign(curve, d, z, k, low_s=low_s)))
@@ -460,10 +486,12 @@ def msm_phase_ms(core) -> dict:
     return out
 
 
-def ecdsa_phases(curve, verify_runs: int, runs: int) -> dict:
-    """Steps 3 and 4 on `curve`: verify 8192 signatures (a quarter tampered)
-    `verify_runs` times; sign 8192 (d, z), derive their keys, recover them,
-    `runs` times each, with the sampled lanes held against the host oracle.
+def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
+    """Steps 3 and 4 on `curve`: verify `count` signatures (a quarter
+    tampered) `verify_runs` times; sign `count` (d, z), derive their keys,
+    verify every signature under them and recover them, `runs` times each
+    (a curve that only verifies, P-192: derive alone), with
+    min(SAMPLE, count // 8) sampled lanes held against the host oracle.
     Returns the median rates and the launches of one run of each."""
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.protocols import ecdsa as E
@@ -471,9 +499,11 @@ def ecdsa_phases(curve, verify_runs: int, runs: int) -> dict:
     from tpu_ecc_torch.utils import ec_host as H
 
     low_s = curve.name in E.LOW_S_CURVES
-    print(f"verify: {curve.name}, 8192 signatures in 2 chunks")
+    signs = curve.name not in E.SIGN_UNSUPPORTED
+    chunks = -(-count // CHUNK)
+    print(f"verify: {curve.name}, {count} signatures in {chunks} chunk(s)")
     t = time.perf_counter()
-    pubs, zs, sigs, expect = signatures(curve, 8192, 256, 5, low_s)
+    pubs, zs, sigs, expect = signatures(curve, count, min(256, count // 4), 5, low_s)
     print(f"  host oracle made the signatures in {time.perf_counter() - t:.1f} s")
     _, rates_v, verify_rate, verify_launches = measure_runs(
         "verify_batch", lambda: E.verify_batch(curve, pubs, zs, sigs), len(sigs),
@@ -483,46 +513,50 @@ def ecdsa_phases(curve, verify_runs: int, runs: int) -> dict:
           f"runs {[round(r, 1) for r in rates_v]}; launches per run {verify_launches}")
     torch.cuda.synchronize()
 
-    print(f"sign: {curve.name}, {SIGNS} (d, z) in 2 chunks, RFC 6979 nonces")
     rng = np.random.default_rng(6)
-    ds = [int.from_bytes(rng.bytes(32), "big") % (curve.n - 1) + 1 for _ in range(SIGNS)]
-    zs_s = [int.from_bytes(rng.bytes(32), "big") % curve.n for _ in range(SIGNS)]
-    sample = [int(i) for i in rng.choice(SIGNS, SAMPLE, replace=False)]
+    nb = curve.scalar_bytes
+    ds = [int.from_bytes(rng.bytes(nb), "big") % (curve.n - 1) + 1 for _ in range(count)]
+    zs_s = [int.from_bytes(rng.bytes(nb), "big") % curve.n for _ in range(count)]
+    sample = [int(i) for i in rng.choice(count, min(SAMPLE, count // 8), replace=False)]
     G = H.aff_generator(curve)
-    signed, rates_s, sign_rate, sign_launches = measure_runs(
-        "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), SIGNS, runs, ("genmul", "pow"))
-    for i in sample:                # nonces from the pure-Python RFC 6979
-        k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(32, "big"))
-        if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=low_s):
-            raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
-    print(f"  {SAMPLE} sampled lanes equal the host oracle; signs/s median "
-          f"{sign_rate:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
-          f"{sign_launches}")
-    pubs_d, rates_d, derive_rate, derive_launches = measure_runs(
-        "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), SIGNS, runs,
+    out = {"verify": verify_rate, "verify_launches": verify_launches, "sign": None,
+           "sign_launches": None, "recover": None}
+    if signs:
+        print(f"sign: {curve.name}, {count} (d, z) in {chunks} chunk(s), RFC 6979 nonces")
+        signed, rates_s, out["sign"], out["sign_launches"] = measure_runs(
+            "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), count, runs, ("genmul", "pow"))
+        for i in sample:                # nonces from the pure-Python RFC 6979
+            k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(nb, "big"),
+                                   E.CURVE_HASH[curve.name])
+            if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=low_s):
+                raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
+        print(f"  {len(sample)} sampled lanes equal the host oracle; signs/s median "
+              f"{out['sign']:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
+              f"{out['sign_launches']}")
+    pubs_d, rates_d, out["derive"], out["derive_launches"] = measure_runs(
+        "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), count, runs,
         ("genmul", "pow"))
     for i in sample:
         if pubs_d[i] != H.aff_mul(curve, ds[i], G):
             raise AssertionError(f"derive_public_batch lane {i} disagrees with the host oracle")
-    print(f"  derive: {SAMPLE} sampled lanes equal the host oracle; derives/s median "
-          f"{derive_rate:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
-          f"{derive_launches}")
-    if E.verify_batch(curve, pubs_d, zs_s, [(r, s) for r, s, _ in signed]) != [True] * SIGNS:
-        raise AssertionError("a signature of sign_batch fails verify_batch")
-    _, rates_r, recover_rate, recover_launches = measure_runs(
-        "recover_batch", lambda: E.recover_batch(curve, zs_s, signed), SIGNS, runs,
-        ("ladder", "pow"), want=pubs_d)
-    print(f"  all {SIGNS} signatures verify under the derived keys, and recover_batch "
-          f"gives back every key; recovers/s median {recover_rate:.1f}, runs "
-          f"{[round(r, 1) for r in rates_r]}; launches per run {recover_launches}")
+    print(f"  derive: {len(sample)} sampled lanes equal the host oracle; derives/s median "
+          f"{out['derive']:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
+          f"{out['derive_launches']}")
+    if signs:
+        if E.verify_batch(curve, pubs_d, zs_s, [(r, s) for r, s, _ in signed]) != [True] * count:
+            raise AssertionError("a signature of sign_batch fails verify_batch")
+        _, rates_r, out["recover"], recover_launches = measure_runs(
+            "recover_batch", lambda: E.recover_batch(curve, zs_s, signed), count, runs,
+            ("ladder", "pow"), want=pubs_d)
+        print(f"  all {count} signatures verify under the derived keys, and recover_batch "
+              f"gives back every key; recovers/s median {out['recover']:.1f}, runs "
+              f"{[round(r, 1) for r in rates_r]}; launches per run {recover_launches}")
     torch.cuda.synchronize()
-    return {"verify": verify_rate, "sign": sign_rate, "derive": derive_rate,
-            "recover": recover_rate, "verify_launches": verify_launches,
-            "sign_launches": sign_launches}
+    return out
 
 
 def chain_phase(curve, a_l, b_l, a_pts, b_pts):
-    """Step 5 on `curve`: padd_chain adds/s at B = 8192, repeat 16, by
+    """Step 5 on `curve`: padd_chain adds/s at B = POINT_B, repeat 16, by
     chain-length differencing (best of 3), and 8 lanes of the result held
     against the host oracle. Returns (adds/s, the chain's launches)."""
     from tpu_ecc_torch.ops import fe as F
@@ -530,8 +564,8 @@ def chain_phase(curve, a_l, b_l, a_pts, b_pts):
     from tpu_ecc_torch.ops import points as P
     from tpu_ecc_torch.utils import ec_host as H
 
-    print(f"headline: padd_chain, {curve.name}, B=8192, repeat 16")
-    B, repeat = 8192, 16
+    B, repeat = POINT_B, 16
+    print(f"headline: padd_chain, {curve.name}, B={B}, repeat {repeat}")
     a = P.point_from_limbs(curve, a_l)
     b = P.point_from_limbs(curve, b_l)
     K.reset_launches()
@@ -564,11 +598,19 @@ def chain_phase(curve, a_l, b_l, a_pts, b_pts):
     return max(add_rates), chain_launches
 
 
+def point_op_inputs(curve, dev) -> tuple:
+    """The single point operations' inputs on `curve`: (a, b limbs, a, b
+    host points), POINT_B points each."""
+    a_l, a_pts = _points(curve, 11, POINT_B, dev)
+    b_l, b_pts = _points(curve, 12, POINT_B, dev)
+    return a_l, b_l, a_pts, b_pts
+
+
 def single_point_ops(curves, dev) -> dict:
     """`padd_points` and `pdouble_points` (the padd and pdouble kernels) at
-    B = 8192 on each curve, the counts set to 0 just before and read just
-    after, 8 lanes held against the host oracle. Returns {curve name:
-    {kernel: launches}}."""
+    B = POINT_B on each curve, on `point_op_inputs`, the counts set to 0
+    just before and read just after, 8 lanes held against the host oracle.
+    Returns {curve name: {kernel: launches}}."""
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import points as P
@@ -576,8 +618,7 @@ def single_point_ops(curves, dev) -> dict:
 
     out = {}
     for curve in curves:
-        a_l, a_pts = _points(curve, 11, 8192, dev)
-        b_l, b_pts = _points(curve, 12, 8192, dev)
+        a_l, b_l, a_pts, b_pts = point_op_inputs(curve, dev)
         a, b = P.point_from_limbs(curve, a_l), P.point_from_limbs(curve, b_l)
         torch.cuda.synchronize()
         K.reset_launches()
@@ -592,7 +633,7 @@ def single_point_ops(curves, dev) -> dict:
                                      "disagree with the host oracle")
         if min(out[curve.name].values()) <= 0:
             raise AssertionError(f"the single point ops on {curve.name} did not launch")
-        print(f"single point ops, {curve.name}, B=8192: padd_points and pdouble_points "
+        print(f"single point ops, {curve.name}, B={POINT_B}: padd_points and pdouble_points "
               f"equal the host oracle on 8 lanes; launches {out[curve.name]}")
     return out
 
@@ -718,72 +759,366 @@ def probes(hold, fields, dev) -> dict:
     return counts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from tpu_ecc_torch import native
-    from tpu_ecc_torch.curves.specs import get_curve
+# the eleventh slice: the 32-bit layer at each curve's own word count
+P384_KERNELS = K256_KERNELS          # P-384's path: all ten (the MSM's four too)
+P384_RUNS = 3                        # its runs of each entry point (no claim rests on them)
+P384_MSM_POINTS = 1 << 16
+WIDE_CURVES = ("p521", "p224", "p192", "sm2", "bign256", "bp256t1", "bp384t1")
+WIDE_KERNELS = ("pow", "ladder", "genmul", "padd", "pdouble")
+FIELD_CURVES = ("bp256r1", "bp384r1")    # pow alone: the generic-a formulas are not ported
+WIDE_COUNT = 256       # the new curves' ECDSA batch: their core calls' lanes and their holds'
+TWIN_WORKERS = 4       # processes that compute the new curves' twins on the CPU
+SASS_WIDE = {("p384", "ladder"), ("p384", "pow"), ("p521", "ladder"), ("p521", "pow")}
+"""The wide builds whose SASS loop bodies phase 1 prints."""
+
+
+def wide_targets(get_curve) -> list:
+    """The builds of the eleventh slice: P-384's path, the five kernels of
+    each new a = 0 / a = -3 curve, pow for the r1 curves."""
+    return ([(get_curve("p384"), n) for n in P384_KERNELS]
+            + [(get_curve(c), n) for c in WIDE_CURVES for n in WIDE_KERNELS]
+            + [(get_curve(c), "pow") for c in FIELD_CURVES])
+
+
+def _twin(plain: str, args: tuple, kw: dict) -> tuple:
+    """kernels.<plain>(*args, **kw) (a plain twin): (its output, its
+    seconds). In a worker process, on CPU tensors."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    t = time.perf_counter()
+    out = getattr(K, plain)(*args, **kw)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _worker_init() -> None:
+    torch.set_num_threads(1)
+
+
+class Twin:
+    """A hold's plain twin, kernels.<plain>(*args, **kw), computed ahead of
+    its kernel: at once in this process on the card (pool None; step 2's,
+    while the kernels build), or by a worker of `pool` on the CPU, on
+    copies of the inputs. Calling it returns the output on `dev`;
+    `seconds` is the twin's time."""
+
+    def __init__(self, pool, dev, plain: str, *args, **kw):
+        self.dev, self.fut = dev, None
+        self.where = "" if pool is None else " on the CPU"
+        if pool is None:
+            self.out, self.seconds = _twin(plain, args, kw)
+        else:
+            cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+            self.fut = pool.submit(_twin, plain, cpu, kw)
+
+    def __call__(self):
+        if self.fut is not None:
+            (self.out, self.seconds), self.fut = self.fut.result(), None
+        return self.out.to(self.dev)
+
+
+def step2_holds(curve, p256, p384, point_curves, dev) -> tuple:
+    """Step 2's holds, each twin computed at once (`Twin`), so that they
+    run while the kernels build: padd_chain at POINT_B lanes, repeat 16, on
+    secp256k1, P-256 and P-384 (the chain phases' inputs); padd and
+    pdouble at POINT_B on every point curve (the single point operations'
+    inputs); on secp256k1 pow on both fields at B = CHUNK, the ladder with
+    GLV at T = 2, without at T = 1 (65 windows) and at the Straus MSM's
+    shape (T = 8 with GLV at the lanes msm() gives STRAUS_POINTS points),
+    genmul at B = CHUNK (65 windows, random scalars plus 0 and n - 1); on
+    P-256 and P-384 `curve_holds` at B = CHUNK. Returns (the holds, the
+    chain phases' inputs by curve name)."""
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
-    from tpu_ecc_torch.ops import kfe
     from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import msm as M
+
+    holds, chain_in = [], {}
+    for c in (curve, p256, p384):
+        a_l, a_pts = _points(c, 1, POINT_B, dev)
+        b_l, b_pts = _points(c, 2, POINT_B, dev)
+        chain_in[c.name] = (a_l, b_l, a_pts, b_pts)
+        holds.append(("padd_chain", f"{c.name} B={POINT_B} repeat=16",
+                      lambda c=c, a=a_l, b=b_l: K.padd_chain(c, a, b, 16),
+                      Twin(None, dev, "padd_chain_plain", c, a_l, b_l, 16), 20,
+                      dict(c=c, compare=coord_diff(c), block=32, repeat=16)))
+    for c in point_curves:
+        a_l, b_l, _, _ = point_op_inputs(c, dev)
+        holds += [("padd", f"{c.name} B={POINT_B}", lambda c=c, a=a_l, b=b_l: K.padd(c, a, b),
+                   Twin(None, dev, "padd_plain", c, a_l, b_l), 20,
+                   dict(c=c, compare=coord_diff(c), block=32)),
+                  ("pdouble", f"{c.name} B={POINT_B}", lambda c=c, a=a_l: K.pdouble(c, a),
+                   Twin(None, dev, "pdouble_plain", c, a_l), 20,
+                   dict(c=c, compare=coord_diff(c), block=32))]
+
+    rng = np.random.default_rng(3)
+    for spec, field in ((curve.scalar, 1), (curve.field, 0)):
+        xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(CHUNK)]
+        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+        e = spec.p - 2
+        holds.append(("pow", f"{spec.name} e=p-2 B={CHUNK}",
+                      lambda spec=spec, x=x, e=e: K.fpow(spec, x, e),
+                      Twin(None, dev, "fpow_plain", spec, x, e), 10,
+                      dict(compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)))
+    Qs, _ = _points(curve, 4, CHUNK, dev)
+    Q = P.point_from_limbs(curve, Qs)
+    G = P.generator(curve, (CHUNK,), dev)
+    ks = [SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big")
+                                  for _ in range(CHUNK)], dev) for _ in range(2)]
+    # the Straus MSM's shape: msm() at 4096 points runs 8 terms on 512 lanes
+    sl = M._pick_lanes(STRAUS_POINTS, 8)
+    straus = [(P.point_from_limbs(curve, _points(curve, 20 + t, sl, dev)[0]),
+               SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big") for _ in range(sl)],
+                               dev)) for t in range(8)]
+    for label, T, glv, terms, bits in (
+            (f"glv T=2 B={CHUNK}", 2, True, [(G, ks[0]), (Q, ks[1])], None),
+            (f"T=1 B={CHUNK}", 1, False, [(Q, ks[0])], 256),
+            (f"Straus glv T=8 B={sl}", 8, True, straus, None)):
+        bases, mag, neg = SM.ladder_inputs(terms, glv=glv, scalar_bits=bits)
+        holds.append(("ladder", label,
+                      lambda b=bases, m=mag, n=neg, g=glv: K.ladder(curve, b, m, n, glv=g),
+                      Twin(None, dev, "ladder_plain", curve, bases, mag, neg, glv=glv), 3,
+                      dict(compare=coord_diff(curve), block=K.ladder_lanes(T, curve), T=T,
+                           nw=mag.shape[0], glv=glv)))
+    kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(CHUNK - 2)]
+    mag_g, neg_g = SM.signed_digits(curve, SM.pack_scalars(curve, kg, dev))
+    mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
+    tbl_g = SM._gen_table(curve, dev)
+    holds.append(("genmul", f"nw={mag_g.shape[0]} B={CHUNK}",
+                  lambda: K.genmul(curve, tbl_g, mag_g, neg_g),
+                  Twin(None, dev, "genmul_plain", curve, tbl_g, mag_g, neg_g), 10,
+                  dict(compare=coord_diff(curve), block=K.GENMUL_LANES, nw=mag_g.shape[0])))
+    for c in (p256, p384):
+        holds += curve_holds(c, CHUNK, dev, ("pow", "ladder", "genmul"))
+    return holds, chain_in
+
+
+def curve_holds(c, B: int, dev, kernels, pool=None) -> list:
+    """The holds of curve c's builds at its path's shapes, each core call
+    B lanes wide, by canonical values mod p: pow on both fields at e = p -
+    2; the verify's (and recover's) two-term ladder without GLV on all the
+    scalar's windows; the comb (genmul) on all its windows, on random
+    scalars plus 0 and n - 1. `kernels` names which. Each twin is computed
+    ahead (`Twin`): at once on the card, or with `pool` by a worker on the
+    CPU. Returns the holds, [(name, label, kernel, twin, timed calls,
+    hold's keywords)], for `run_holds`."""
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    def twin(plain, *args):
+        return Twin(pool, dev, plain, *args)
+
+    rng = np.random.default_rng(31)
+    out = []
+    if "pow" in kernels:
+        for spec, field in ((c.scalar, 1), (c.field, 0)):
+            xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p
+                  for _ in range(B)]
+            x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+            e = spec.p - 2
+            out.append(("pow", f"{spec.name} e=p-2 B={B}",
+                        lambda spec=spec, x=x, e=e: K.fpow(spec, x, e),
+                        twin("fpow_plain", spec, x, e), 10,
+                        dict(c=c, compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)))
+    if "ladder" in kernels:
+        Qs, _ = _points(c, 4, B, dev)
+        ks = [SM.pack_scalars(c, [int.from_bytes(rng.bytes(c.scalar_bytes), "big")
+                                  for _ in range(B)], dev) for _ in range(2)]
+        bases, mag, neg = SM.ladder_inputs([(P.generator(c, (B,), dev), ks[0]),
+                                            (P.point_from_limbs(c, Qs), ks[1])])
+        out.append(("ladder", f"{c.name} T=2 nw={mag.shape[0]} B={B}",
+                    lambda: K.ladder(c, bases, mag, neg), twin("ladder_plain", c, bases, mag, neg),
+                    3, dict(c=c, compare=coord_diff(c), block=K.ladder_lanes(2, c), T=2,
+                            nw=mag.shape[0], glv=False)))
+    if "genmul" in kernels:
+        kg = [0, c.n - 1] + [int.from_bytes(rng.bytes(c.scalar_bytes), "big")
+                             for _ in range(B - 2)]
+        mag_g, neg_g = SM.signed_digits(c, SM.pack_scalars(c, kg, dev))
+        mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
+        tbl_g = SM._gen_table(c, dev)
+        out.append(("genmul", f"{c.name} nw={mag_g.shape[0]} B={B}",
+                    lambda: K.genmul(c, tbl_g, mag_g, neg_g),
+                    twin("genmul_plain", c, tbl_g, mag_g, neg_g), 10,
+                    dict(c=c, compare=coord_diff(c), block=K.GENMUL_LANES, nw=mag_g.shape[0])))
+    return out
+
+
+def run_holds(hold, holds) -> None:
+    for name, label, kern, plain, reps, kw in holds:
+        hold(name, label, kern, plain, reps, **kw)
+    torch.cuda.synchronize()
+
+
+def field_only_path(curve, dev) -> dict:
+    """The card path of a curve whose formulas the layer lacks: `finv` on
+    both fields of WIDE_COUNT elements through the field layer's entry
+    point (the pow kernel), each against Python, the counts set to 0 just
+    before and read just after. Returns the pow launches."""
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+
+    rng = np.random.default_rng(17)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    for spec in (curve.field, curve.scalar):
+        xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p
+              for _ in range(WIDE_COUNT)]
+        got = F.fe_to_ints(F.finv(F.fe_from_ints(spec, xs, dev)))
+        if got != [pow(x, -1, spec.p) if x else 0 for x in xs]:
+            raise AssertionError(f"finv on {spec.name} disagrees with Python")
+    torch.cuda.synchronize()
+    if K.launches["pow"] != 2:
+        raise AssertionError(f"finv on {curve.name} launched pow {K.launches['pow']} times")
+    print(f"finv, {curve.name}, both fields, {WIDE_COUNT}: equal to Python; pow launches 2")
+    return {"pow": K.launches["pow"]}
+
+
+def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) -> dict:
+    """Step 7 on curve c: N points P_i = a_i*G made on the card
+    (derive_public_batch) and full-width k_i, from `seed`. Holds the four
+    Pippenger phase kernels against their twins on the card at the shapes
+    the first group of windows gives them (segscan signed, fixup,
+    bucket_reduce without drop0 as the signed path runs it, horner on all
+    the window sums; with `variants` also segscan unsigned on 16 rows,
+    bucket_reduce with drop0, fixup and bucket_reduce at the last group's
+    3 windows), by canonical coordinates, and horner's one-thread bound in
+    both designs' counts. Then msm() (signed, w = MSM_W) must equal (sum
+    a_i*k_i mod n)*G from one host aff_mul, with every phase kernel
+    launched; the device core (packed tensors in, point out, closed by a
+    synchronize) runs MSM_RUNS times. Returns the points, the scalars, the
+    core, msm()'s launches and the core's median points/s."""
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.parallel import msm as M
     from tpu_ecc_torch.utils import ec_host as H
 
-    started = time.perf_counter()
-    dev = torch.device("cuda")
-    curve, p256 = get_curve("secp256k1"), get_curve("p256")
-    curves = (curve, p256)
-    mxu = F.make_field_spec("k256mxu.fp", curve.p, "mont")
-    probe_fields = (curve.field, p256.field, mxu)
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    print(f"msm: {c.name}, {N} points a_i*G made on the card, full-width k_i")
+    t = time.perf_counter()
+    nb = c.scalar_bytes
+    raw = np.random.default_rng(seed).bytes(2 * nb * N)
+    a_i = [int.from_bytes(raw[2 * nb * i:2 * nb * i + nb], "big") % (c.n - 1) + 1
+           for i in range(N)]
+    k_i = [int.from_bytes(raw[2 * nb * i + nb:2 * nb * (i + 1)], "big") % c.n for i in range(N)]
+    del raw
+    pts = SM.derive_public_batch(c, a_i)
+    want = H.aff_mul(c, sum(a * k for a, k in zip(a_i, k_i)) % c.n, H.aff_generator(c))
+    print(f"  points, scalars and the host check made in {time.perf_counter() - t:.1f} s")
 
-    # -- 1. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    probe_targets = ([(None, "dma_gather")] + [(f, "fmul_chain") for f in probe_fields]
-                     + [(f, "mxu_chain") for f in probe_fields if f.kind == "mont"]
-                     + [(curve, "ladder_probe")])
-    targets = ([(curve, name) for name in K256_KERNELS] + [(p256, name) for name in P256_KERNELS]
-               + probe_targets)
-    reports = K.build_targets(targets)
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(targets)} kernels: "
-          f"{list(K256_KERNELS)} for secp256k1, {list(P256_KERNELS)} for p256, "
-          f"{[row_name(n, t) for t, n in probe_targets]} for the probes")
-    for (cname, name), rep in reports.items():
-        print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
-    print("the 32-bit layer's kernels and dma_gather: ptxas, and the loop bodies in SASS "
-          "against the fe32 count")
-    for c in curves:
-        model = kfe.fe32_counts(c)
-        print(f"  fe32 count, {c.name}: " + ", ".join(
-            f"{f} {model[f]}" for f in ("padd", "padd_mixed", "pdouble", "select_point",
-                                        "select_affine", "cneg", "mul", "sqr", "load",
-                                        "store"))
-            + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
-            + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
-    for c, name in [(c, n) for c in curves for n in K.FE32_KERNELS
-                    if (c, n) in targets] + [(None, "dma_gather")]:
-        so = K._target(name, c)[0]
-        with open(f"{so}.log") as fh:
-            regs, stack = ptxas_report(fh.read())
-        print(f"  {row_name(name, c)}: {regs}; {stack}")
-        if not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
-                            for ln in stack.split(" | ")):
-            raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
-        for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
-            print(f"    SASS loop bodies of {fn} by class, largest first: "
-                  f"{sass_loop_counts(so, fn)}")
-    t0 = time.perf_counter()
-    native.build()
-    print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
+    lanes = min(MSM_LANES, 1 << max(N.bit_length() - 3, 3))
+    packed = M.pack(c, pts, k_i, lanes, dev)
+    xs, ys = F.fe_steady(c.field, packed[0]), F.fe_steady(c.field, packed[1])
+    payload, keys, negs, nbuck = M.pippenger_inputs(c, xs, ys, packed[2], packed[3], MSM_W,
+                                                    signed=True)
+    nwin = keys.shape[0]
+    per = min(max(1, M.GROUP_BYTES // payload[:1].nbytes // N), nwin)
+    skey, key2, val2, neg2 = M.sorted_windows(payload, keys[:per], negs[:per], lanes)
+    C, width = key2.shape[0], key2[0].numel()
+    seg_adds = int((key2[1:] == key2[:-1]).sum() + (key2[0] == nbuck).sum())
+    seg_ends = int(run_ends(key2).sum())
+    print(f"hold: the Pippenger phases on {c.name} at the first group of {per} of {nwin} "
+          f"windows (C = {C}, L = {lanes}, nbuck = {nbuck})")
+    print(f"  segscan: {seg_adds} adds, {seg_ends} run-end rows of {C * width}")
+    hold("segscan", f"{c.name} signed C={C} lanes={per}x{lanes}",
+         lambda: K.segscan(c, key2, val2, nbuck, neg2),
+         lambda: K.segscan_plain(c, key2, val2, nbuck, neg2), 3, c=c, B=width,
+         compare=segscan_diff(c, key2), block=128, C=C, adds=seg_adds, ends=seg_ends,
+         signed=True)
+    if variants:
+        hold("segscan", f"{c.name} unsigned C=16 lanes={per}x{lanes}",
+             lambda: K.segscan(c, key2[:16], val2[:16], nbuck),
+             lambda: K.segscan_plain(c, key2[:16], val2[:16], nbuck), 3, c=c, B=width,
+             compare=segscan_diff(c, key2[:16]), C=16,
+             adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
+             ends=int(run_ends(key2[:16]).sum()), signed=False)
+    scanned, last_key, tail, lead = K.segscan(c, key2, val2, nbuck, neg2)
+
+    def fix_adds(lk):
+        return sum(int((lk[:, s:] == lk[:, :-s]).sum())
+                   for s in (1 << i for i in range(lanes.bit_length() - 1)))
+
+    hold("fixup", f"{c.name} lanes={per}x{lanes}",
+         lambda: K.fixup(c, tail, last_key, key2[0], lead),
+         lambda: K.fixup_plain(c, tail, last_key, key2[0], lead), 5, c=c, B=width,
+         compare=coord_diff(c), block=K.FIXUP_LANES, adds=fix_adds(last_key))
+    if variants:                          # the last group's 3 windows
+        t3, lk3, fk3, ld3 = (x[..., :3, :].contiguous() for x in (tail, last_key, key2[0], lead))
+        hold("fixup", f"{c.name} lanes=3x{lanes}", lambda: K.fixup(c, t3, lk3, fk3, ld3),
+             lambda: K.fixup_plain(c, t3, lk3, fk3, ld3), 5, c=c, B=3 * lanes,
+             compare=coord_diff(c), block=K.FIXUP_LANES, adds=fix_adds(lk3))
+    fixed = K.fixup(c, tail, last_key, key2[0], lead)
+    buckets = M.bucket_lookup(c, skey, scanned, fixed, key2[0], nbuck)
+    for drop0 in (False, True) if variants else (False,):     # False: the signed path's
+        hold("bucket_reduce", f"{c.name} nbuck={nbuck} windows={per} drop0={drop0}",
+             lambda: K.bucket_reduce(c, buckets, drop0),
+             lambda: K.bucket_reduce_plain(c, buckets, drop0), 5, c=c, B=nbuck,
+             compare=coord_diff(c), groups=per)
+    if variants:
+        last = buckets[:, :, :3].contiguous()     # the last group's 3 windows
+        hold("bucket_reduce", f"{c.name} nbuck={nbuck} windows=3 drop0=False",
+             lambda: K.bucket_reduce(c, last, False),
+             lambda: K.bucket_reduce_plain(c, last, False), 5, c=c, B=nbuck,
+             compare=coord_diff(c), groups=3)
+    warps = per * nbuck // 32
+    print(f"  bucket_reduce: a suffix step of {per} windows is {warps} warps, "
+          f"{warps / (4 * SMS):.3f} a scheduler")
+    s_all = torch.cat([M.window_sums(c, payload, keys[j:j + per], negs[j:j + per],
+                                     lanes, nbuck, True)
+                       for j in range(0, nwin, per)], -1).permute(2, 0, 1)
+    hold("horner", f"{c.name} w={MSM_W} nw={nwin}", lambda: K.horner(c, s_all, MSM_W),
+         lambda: K.horner_plain(c, s_all, MSM_W), 5, c=c, B=1, compare=coord_diff(c),
+         nw=nwin, w=MSM_W)
+    thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
+                 / clock_hz for d in K.designs("horner")}
+    hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
+    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
+        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
+    del skey, key2, val2, neg2, scanned, fixed, payload, buckets
     torch.cuda.synchronize()
 
-    # -- 2. each kernel against its plain twin, at the main path's shapes ---
-    rows = {}
+    print(f"msm(): {c.name}, {N} points, signed w={MSM_W}, {lanes} lanes")
+    K.reset_launches()
+    t = time.perf_counter()
+    got = M.msm(c, pts, k_i)
+    wall = time.perf_counter() - t
+    launches = dict(K.launches)
+    if got != want:
+        raise AssertionError(f"msm() on {c.name} disagrees with the host check")
+    for name in ("segscan", "fixup", "bucket_reduce", "horner"):
+        if launches[name] <= 0:
+            raise AssertionError(f"msm() on {c.name} did not launch the {name} kernel")
+    print(f"  equals (sum a_i*k_i mod n)*G; whole msm() {wall:.3f} s; launches "
+          f"per MSM {launches}")
 
-    def hold(name, label, kern, plain, reps, B=None, c=curve, library=None,
+    def core():
+        return M.msm_limbs(c, *packed, "pippenger", w=MSM_W, lanes=lanes, signed=True)
+
+    first = core()
+    rates = []
+    for _ in range(MSM_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = core()
+        torch.cuda.synchronize()
+        rates.append(N / (time.perf_counter() - t))
+        if not torch.equal(out, first):
+            raise AssertionError(f"the {c.name} MSM core differs between runs")
+    rate = float(np.median(rates))
+    print(f"  device core: points/s median {rate:.1f}, runs {[round(r, 1) for r in rates]}")
+    return {"pts": pts, "a_i": a_i, "k_i": k_i, "core": core, "launches": launches,
+            "rate": rate}
+
+
+def make_hold(rows: dict, clock_hz: float, default_curve):
+    """The hold of phase 2: a function that holds a kernel against its
+    plain twin, times both and records the kernel's row in `rows`."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    def hold(name, label, kern, plain, reps, B=None, c=default_curve, library=None,
              compare=limb_diff, block=None, **work):
         """kern() against plain() (a tensor or a tuple of them) by compare
         (the largest limb difference, by default of the raw limbs), then
@@ -793,13 +1128,14 @@ def main() -> int:
         alone; a field spec; None), and the ms of library(), one PyTorch
         call that computes the same function, where there is one. With
         `block` (the lanes a block, one thread a lane), prints the warps
-        a scheduler of the card."""
+        a scheduler of the card. A `Twin` plain was computed ahead, and
+        its time is its own."""
         out_k = kern()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out_p = plain()
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t
+        plain_s = plain.seconds if isinstance(plain, Twin) else time.perf_counter() - t
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
         if [a.shape for a in outs_k] != [b.shape for b in outs_p]:
@@ -832,8 +1168,9 @@ def main() -> int:
             lanes = outs_k[0].shape[-1] if B is None else B
             warps = -(-lanes // block) * -(-block // 32)
             extra += f"; {warps} warps, {warps / (4 * SMS):.3f} a scheduler"
+        where = plain.where if isinstance(plain, Twin) else ""
         print(f"  {key} [{label}]: {same} to its twin; kernel {ms:.3f} ms, "
-              f"twin {1e3 * plain_s:.1f} ms, bound {bound_ms:.4f} ms ({by}){extra}")
+              f"twin {1e3 * plain_s:.1f} ms{where}, bound {bound_ms:.4f} ms ({by}){extra}")
         row = rows.setdefault(key, {"max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if "ms" not in row:        # the first variant is the main path's shape
@@ -841,227 +1178,158 @@ def main() -> int:
                        library_ms=lib_ms)
         return ms, lib_ms
 
-    print("hold: kernels against their plain twins")
-    a_l, a_pts = _points(curve, 1, 8192, dev)
-    b_l, b_pts = _points(curve, 2, 8192, dev)
-    hold("padd_chain", "B=8192 repeat=16",
-         lambda: K.padd_chain(curve, a_l, b_l, 16),
-         lambda: K.padd_chain_plain(curve, a_l, b_l, 16), 20, compare=coord_diff(curve),
-         block=32, repeat=16)
+    hold.rows = rows
+    return hold
 
-    rng = np.random.default_rng(3)
-    for spec, field in ((curve.scalar, 1), (curve.field, 0)):
-        xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(4096)]
-        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
-        e = spec.p - 2
-        hold("pow", f"{spec.name} e=p-2 B=4096",
-             lambda: K.fpow(spec, x, e), lambda: K.fpow_plain(spec, x, e), 10,
-             compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)
 
-    Qs, _ = _points(curve, 4, 4096, dev)
-    Q = P.point_from_limbs(curve, Qs)
-    G = P.generator(curve, (4096,), dev)
-    ks = [SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big")
-                                  for _ in range(4096)], dev) for _ in range(2)]
-    bases, mag, neg = SM.ladder_inputs([(G, ks[0]), (Q, ks[1])], glv=True)
-    hold("ladder", "glv T=2 B=4096",
-         lambda: K.ladder(curve, bases, mag, neg, glv=True),
-         lambda: K.ladder_plain(curve, bases, mag, neg, glv=True), 3,
-         compare=coord_diff(curve), block=K.ladder_lanes(2), T=2, nw=mag.shape[0], glv=True)
-    bases1, mag1, neg1 = SM.ladder_inputs([(Q, ks[0])], scalar_bits=256)
-    hold("ladder", "T=1 B=4096",
-         lambda: K.ladder(curve, bases1, mag1, neg1),
-         lambda: K.ladder_plain(curve, bases1, mag1, neg1), 3,
-         compare=coord_diff(curve), block=K.ladder_lanes(1), T=1, nw=mag1.shape[0],
-         glv=False)
-    # the Straus MSM's shape: msm() at 4096 points runs 8 terms on 512 lanes
-    sl = M._pick_lanes(STRAUS_POINTS, 8)
-    bases8, mag8, neg8 = SM.ladder_inputs(
-        [(P.point_from_limbs(curve, _points(curve, 20 + t, sl, dev)[0]),
-          SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big") for _ in range(sl)], dev))
-         for t in range(8)], glv=True)
-    hold("ladder", f"Straus glv T=8 B={sl}",
-         lambda: K.ladder(curve, bases8, mag8, neg8, glv=True),
-         lambda: K.ladder_plain(curve, bases8, mag8, neg8, glv=True), 3,
-         compare=coord_diff(curve), block=K.ladder_lanes(8), T=8, nw=mag8.shape[0], glv=True)
-    del bases8, mag8, neg8
-    kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
-    mag_g, neg_g = SM.signed_digits(curve, SM.pack_scalars(curve, kg, dev))
-    mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
-    tbl_g = SM._gen_table(curve, dev)
-    hold("genmul", f"nw={mag_g.shape[0]} B=4096",
-         lambda: K.genmul(curve, tbl_g, mag_g, neg_g),
-         lambda: K.genmul_plain(curve, tbl_g, mag_g, neg_g), 10,
-         compare=coord_diff(curve), block=K.GENMUL_LANES, nw=mag_g.shape[0])
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    pool = ProcessPoolExecutor(TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_worker_init)
+    try:
+        return run(pool)
+    finally:                    # on a fault, no worker goes on with a queued twin
+        pool.shutdown(cancel_futures=True)
+
+
+def run(pool) -> int:
+    """Steps 1-10 (see the module's docstring), the new curves' twins on
+    `pool`."""
+    from tpu_ecc_torch import native
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import kfe
+    from tpu_ecc_torch.parallel import msm as M
+    from tpu_ecc_torch.utils import ec_host as H
+
+    started = time.perf_counter()
+    dev = torch.device("cuda")
+    curve, p256, p384 = get_curve("secp256k1"), get_curve("p256"), get_curve("p384")
+    curves = (curve, p256)
+    wide_curves = tuple(get_curve(n) for n in WIDE_CURVES)
+    point_curves = curves + (p384,) + wide_curves
+    mxu = F.make_field_spec("k256mxu.fp", curve.p, "mont")
+    probe_fields = (curve.field, p256.field, mxu)
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+
+    # -- 1. build; step 2's inputs and twins meanwhile ------------------------
+    t0 = time.perf_counter()
+    probe_targets = ([(None, "dma_gather")] + [(f, "fmul_chain") for f in probe_fields]
+                     + [(f, "mxu_chain") for f in probe_fields if f.kind == "mont"]
+                     + [(curve, "ladder_probe")])
+    targets = ([(curve, name) for name in K256_KERNELS] + [(p256, name) for name in P256_KERNELS]
+               + probe_targets + wide_targets(get_curve))
+    step2, chain_in, twins_s = [], {}, []
+
+    def prepare():          # plain PyTorch on the card: needs no kernel
+        t = time.perf_counter()
+        holds, inputs = step2_holds(curve, p256, p384, point_curves, dev)
+        step2.extend(holds)
+        chain_in.update(inputs)
+        twins_s.append(time.perf_counter() - t)
+
+    reports = K.build_targets(targets, meanwhile=prepare, nice=10)
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s for {len(reports)} libraries of {len(targets)} kernels "
+          f"(padd is padd_chain's library at one add; nvcc at niceness 10, step 2's twins "
+          f"made meanwhile in {twins_s[0]:.1f} s): {list(K256_KERNELS)} for secp256k1, "
+          f"{list(P256_KERNELS)} for p256, {[row_name(n, t) for t, n in probe_targets]} for "
+          f"the probes, {list(P384_KERNELS)} for p384, {list(WIDE_KERNELS)} for "
+          f"{list(WIDE_CURVES)}, pow for {list(FIELD_CURVES)}")
+    for (cname, name), rep in reports.items():
+        print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
+    print("the 32-bit layer's kernels and dma_gather: ptxas, and the loop bodies in SASS "
+          "against the fe32 count")
     for c in curves:
-        pa_l, _ = _points(c, 11, 8192, dev)
-        pb_l, _ = _points(c, 12, 8192, dev)
-        hold("padd", f"{c.name} B=8192", lambda: K.padd(c, pa_l, pb_l),
-             lambda: K.padd_plain(c, pa_l, pb_l), 20, c=c)
-        hold("pdouble", f"{c.name} B=8192", lambda: K.pdouble(c, pa_l),
-             lambda: K.pdouble_plain(c, pa_l), 20, c=c)
-
-    print("hold: the P-256 builds against their plain twins")
-    pa_l, pa_pts = _points(p256, 1, 8192, dev)
-    pb_l, pb_pts = _points(p256, 2, 8192, dev)
-    hold("padd_chain", "p256 B=8192 repeat=16",
-         lambda: K.padd_chain(p256, pa_l, pb_l, 16),
-         lambda: K.padd_chain_plain(p256, pa_l, pb_l, 16), 20, c=p256,
-         compare=coord_diff(p256), block=32, repeat=16)
-    for spec, field in ((p256.scalar, 1), (p256.field, 0)):
-        xs = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(4096)]
-        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
-        e = spec.p - 2
-        hold("pow", f"{spec.name} e=p-2 B=4096",
-             lambda: K.fpow(spec, x, e), lambda: K.fpow_plain(spec, x, e), 10,
-             c=p256, compare=field_diff(spec), block=K.POW_LANES, field=field, e=e)
-    Qs, _ = _points(p256, 4, 4096, dev)
-    ks = [SM.pack_scalars(p256, [int.from_bytes(rng.bytes(32), "big")
-                                 for _ in range(4096)], dev) for _ in range(2)]
-    bases, mag, neg = SM.ladder_inputs([(P.generator(p256, (4096,), dev), ks[0]),
-                                        (P.point_from_limbs(p256, Qs), ks[1])])
-    hold("ladder", f"p256 T=2 nw={mag.shape[0]} B=4096",
-         lambda: K.ladder(p256, bases, mag, neg),
-         lambda: K.ladder_plain(p256, bases, mag, neg), 3, c=p256,
-         compare=coord_diff(p256), block=K.ladder_lanes(2), T=2, nw=mag.shape[0], glv=False)
-    kg = [0, p256.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(4094)]
-    mag_g, neg_g = SM.signed_digits(p256, SM.pack_scalars(p256, kg, dev))
-    mag_g, neg_g = mag_g.flip(0), neg_g.flip(0)        # LSB window first
-    tbl_g = SM._gen_table(p256, dev)
-    hold("genmul", f"p256 nw={mag_g.shape[0]} B=4096",
-         lambda: K.genmul(p256, tbl_g, mag_g, neg_g),
-         lambda: K.genmul_plain(p256, tbl_g, mag_g, neg_g), 10, c=p256,
-         compare=coord_diff(p256), block=K.GENMUL_LANES, nw=mag_g.shape[0])
-    del bases, mag, neg, tbl_g, mag_g, neg_g
+        model = kfe.fe32_counts(c)
+        print(f"  fe32 count, {c.name}: " + ", ".join(
+            f"{f} {model[f]}" for f in ("padd", "padd_mixed", "pdouble", "select_point",
+                                        "select_affine", "cneg", "mul", "sqr", "load",
+                                        "store"))
+            + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
+            + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
+    for c in (p384, get_curve("p521")):
+        model = kfe.fe32_counts(c)
+        print(f"  fe32 count, {c.name}: " + ", ".join(
+            f"{f} {model[f]}" for f in ("padd", "pdouble", "mul", "sqr", "load", "store"))
+            + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
+            + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
+    # the builds on the 32-bit layer (a library once, under its kernels'
+    # names): at N = 8 words they must not spill; at N = 6, 7, 12 and 17 a
+    # spill is printed, not refused
+    libs = {}
+    for c, name in targets:
+        if c is not None and name in K.FE32_KERNELS or name == "dma_gather":
+            libs.setdefault(K._target(name, c)[0], []).append((c, name))
+    for so, names in libs.items():
+        c, name = names[0]
+        with open(f"{so}.log") as fh:
+            regs, stack = ptxas_report(fh.read())
+        words = None if c is None else kfe.fe32_words(c.field)
+        print(f"  {' and '.join(row_name(n, t) for t, n in names)}"
+              f"{'' if words is None else f' (N = {words})'}: {regs}; {stack}")
+        spills = not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
+                                  for ln in stack.split(" | "))
+        if spills and words in (None, 8):
+            raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
+        if c is None or c in curves or (c.name, name) in SASS_WIDE:
+            for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
+                print(f"    SASS loop bodies of {fn} by class, largest first: "
+                      f"{sass_loop_counts(so, fn)}")
+    t0 = time.perf_counter()
+    native.build()
+    print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
+    # the new curves' holds at their path's shapes, their twins computed by
+    # the workers on the CPU while steps 2-6 run
+    t10 = time.perf_counter()
+    wide_holds = {c.name: curve_holds(c, WIDE_COUNT, dev, ("pow", "ladder", "genmul"), pool)
+                  for c in wide_curves}
+    wide_holds.update({n: curve_holds(get_curve(n), WIDE_COUNT, dev, ("pow",), pool)
+                       for n in FIELD_CURVES})
+    wide_s = time.perf_counter() - t10
     torch.cuda.synchronize()
+
+    # -- 2. each kernel against its plain twin, at the main path's shapes ---
+    rows = {}
+    hold = make_hold(rows, clock_hz, curve)
+    print("hold: kernels against their plain twins (secp256k1, then the point kernels "
+          "of every curve, P-256's and P-384's builds)")
+    run_holds(hold, step2)
+    del step2
 
     # -- 3.-5. the main path on secp256k1: ECDSA, the point-add chain --------
-    k256 = ecdsa_phases(curve, VERIFY_RUNS, RUNS)
-    k256["adds"], chain_launches = chain_phase(curve, a_l, b_l, a_pts, b_pts)
-    single = single_point_ops(curves, dev)
+    k256 = ecdsa_phases(curve, SIGNS, VERIFY_RUNS, RUNS)
+    k256["adds"], chain_launches = chain_phase(curve, *chain_in[curve.name])
+    single = single_point_ops(point_curves, dev)
 
     # -- 6. the P-256 path: ECDSA, the point-add chain ------------------------
-    p = ecdsa_phases(p256, VERIFY_RUNS, RUNS)
-    p["adds"], p_chain_launches = chain_phase(p256, pa_l, pb_l, pa_pts, pb_pts)
-    G = H.aff_generator(curve)
+    p = ecdsa_phases(p256, SIGNS, VERIFY_RUNS, RUNS)
+    p["adds"], p_chain_launches = chain_phase(p256, *chain_in[p256.name])
+
+    # -- 10. the new curves: P-384's path, then the others' holds and ECDSA ---
+    t10 = time.perf_counter()
+    q = ecdsa_phases(p384, SIGNS, P384_RUNS, P384_RUNS)
+    q["adds"], q_chain_launches = chain_phase(p384, *chain_in[p384.name])
+    print(f"hold: the new curves' builds at their path's shapes (B = {WIDE_COUNT}), the "
+          "twins computed by the workers on the CPU")
+    for holds in wide_holds.values():
+        run_holds(hold, holds)
+    del wide_holds
+    pool.shutdown()
+    wide = {c.name: ecdsa_phases(c, WIDE_COUNT, 1, 1) for c in wide_curves}
+    fields_only = {n: field_only_path(get_curve(n), dev) for n in FIELD_CURVES}
+    wide_s += time.perf_counter() - t10
 
     # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
-    print(f"msm: secp256k1, {MSM_POINTS} points a_i*G made on the card, full-width k_i")
-    t = time.perf_counter()
-    raw = np.random.default_rng(8).bytes(64 * MSM_POINTS)
-    a_i = [int.from_bytes(raw[64 * i:64 * i + 32], "big") % (curve.n - 1) + 1
-           for i in range(MSM_POINTS)]
-    k_i = [int.from_bytes(raw[64 * i + 32:64 * i + 64], "big") % curve.n
-           for i in range(MSM_POINTS)]
-    del raw
-    pts = SM.derive_public_batch(curve, a_i)
-    want = H.aff_mul(curve, sum(a * k for a, k in zip(a_i, k_i)) % curve.n, G)
-    print(f"  points, scalars and the host check made in {time.perf_counter() - t:.1f} s")
-
-    f = curve.field
-    packed = M.pack(curve, pts, k_i, MSM_LANES, dev)
-    xs, ys = F.fe_steady(f, packed[0]), F.fe_steady(f, packed[1])
-    payload, keys, negs, nbuck = M.pippenger_inputs(curve, xs, ys, packed[2], packed[3],
-                                                    MSM_W, signed=True)
-    per = M.GROUP_BYTES // payload[:1].nbytes // MSM_POINTS
-    skey, key2, val2, neg2 = M.sorted_windows(payload, keys[:per], negs[:per], MSM_LANES)
-    C, lanes = key2.shape[0], key2[0].numel()
-    seg_adds = int((key2[1:] == key2[:-1]).sum() + (key2[0] == nbuck).sum())
-    seg_ends = int(run_ends(key2).sum())
-    print(f"hold: the Pippenger phases at the first group of {per} windows "
-          f"(C = {C}, L = {MSM_LANES}, nbuck = {nbuck})")
-    print(f"  segscan: {seg_adds} adds, {seg_ends} run-end rows of {C * lanes}")
-    hold("segscan", f"signed C={C} lanes={per}x{MSM_LANES}",
-         lambda: K.segscan(curve, key2, val2, nbuck, neg2),
-         lambda: K.segscan_plain(curve, key2, val2, nbuck, neg2), 3, B=lanes,
-         compare=segscan_diff(curve, key2), block=128, C=C, adds=seg_adds, ends=seg_ends,
-         signed=True)
-    hold("segscan", f"unsigned C=16 lanes={per}x{MSM_LANES}",
-         lambda: K.segscan(curve, key2[:16], val2[:16], nbuck),
-         lambda: K.segscan_plain(curve, key2[:16], val2[:16], nbuck), 3, B=lanes,
-         compare=segscan_diff(curve, key2[:16]), C=16,
-         adds=int((key2[1:16] == key2[:15]).sum() + (key2[0] == nbuck).sum()),
-         ends=int(run_ends(key2[:16]).sum()), signed=False)
-    scanned, last_key, tail, lead = K.segscan(curve, key2, val2, nbuck, neg2)
-
-    def fix_adds(lk):
-        return sum(int((lk[:, s:] == lk[:, :-s]).sum())
-                   for s in (1 << i for i in range(MSM_LANES.bit_length() - 1)))
-
-    hold("fixup", f"lanes={per}x{MSM_LANES}",
-         lambda: K.fixup(curve, tail, last_key, key2[0], lead),
-         lambda: K.fixup_plain(curve, tail, last_key, key2[0], lead), 5, B=lanes,
-         compare=coord_diff(curve), block=K.FIXUP_LANES, adds=fix_adds(last_key))
-    # the last group's 3 windows
-    t3, lk3, fk3, ld3 = (x[..., :3, :].contiguous() for x in (tail, last_key, key2[0], lead))
-    hold("fixup", f"lanes=3x{MSM_LANES}", lambda: K.fixup(curve, t3, lk3, fk3, ld3),
-         lambda: K.fixup_plain(curve, t3, lk3, fk3, ld3), 5, B=3 * MSM_LANES,
-         compare=coord_diff(curve), block=K.FIXUP_LANES, adds=fix_adds(lk3))
-    fixed = K.fixup(curve, tail, last_key, key2[0], lead)
-    buckets = M.bucket_lookup(curve, skey, scanned, fixed, key2[0], nbuck)
-    for drop0 in (False, True):          # False: the signed path's
-        hold("bucket_reduce", f"nbuck={nbuck} windows={per} drop0={drop0}",
-             lambda: K.bucket_reduce(curve, buckets, drop0),
-             lambda: K.bucket_reduce_plain(curve, buckets, drop0), 5, B=nbuck,
-             compare=coord_diff(curve), groups=per)
-    last = buckets[:, :, :3].contiguous()     # the last group's 3 windows
-    hold("bucket_reduce", f"nbuck={nbuck} windows=3 drop0=False",
-         lambda: K.bucket_reduce(curve, last, False),
-         lambda: K.bucket_reduce_plain(curve, last, False), 5, B=nbuck,
-         compare=coord_diff(curve), groups=3)
-    warps = per * nbuck // 32
-    print(f"  bucket_reduce: a suffix step of {per} windows is {warps} warps, "
-          f"{warps / (4 * SMS):.3f} a scheduler")
-    s_all = torch.cat([M.window_sums(curve, payload, keys[j:j + per], negs[j:j + per],
-                                     MSM_LANES, nbuck, True)
-                       for j in range(0, keys.shape[0], per)], -1).permute(2, 0, 1)
-    nw = s_all.shape[0]
-    hold("horner", f"w={MSM_W} nw={nw}", lambda: K.horner(curve, s_all, MSM_W),
-         lambda: K.horner_plain(curve, s_all, MSM_W), 5, B=1, compare=coord_diff(curve),
-         nw=nw, w=MSM_W)
-    thread_ms = {d: 1e3 * sum(K.work("horner", curve, 1, design=d, nw=nw, w=MSM_W)[0].values())
-                 / clock_hz for d in K.designs("horner")}
-    rows["horner"]["thread_bound_ms"] = min(thread_ms.values())
-    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
-        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
-    del skey, key2, val2, neg2, scanned, fixed, payload
-    torch.cuda.synchronize()
-
-    print(f"msm(): {MSM_POINTS} points, signed w={MSM_W}, {MSM_LANES} lanes")
-    K.reset_launches()
-    t = time.perf_counter()
-    got = M.msm(curve, pts, k_i)
-    msm_wall = time.perf_counter() - t
-    msm_launches = dict(K.launches)
-    if got != want:
-        raise AssertionError("msm() disagrees with the host check")
-    for name in ("segscan", "fixup", "bucket_reduce", "horner"):
-        if msm_launches[name] <= 0:
-            raise AssertionError(f"msm() did not launch the {name} kernel")
-    print(f"  equals (sum a_i*k_i mod n)*G; whole msm() {msm_wall:.3f} s; launches "
-          f"per MSM {msm_launches}")
-
-    def core():
-        return M.msm_limbs(curve, *packed, "pippenger", w=MSM_W, lanes=MSM_LANES,
-                           signed=True)
-
-    first = core()
-    rates = []
-    for _ in range(MSM_RUNS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = core()
-        torch.cuda.synchronize()
-        rates.append(MSM_POINTS / (time.perf_counter() - t))
-        if not torch.equal(out, first):
-            raise AssertionError("the MSM core differs between runs")
-    msm_rate = float(np.median(rates))
-    print(f"  device core: points/s median {msm_rate:.1f}, runs "
-          f"{[round(r, 1) for r in rates]}")
-
+    k_msm = msm_phase(hold, curve, MSM_POINTS, 8, dev, True, clock_hz)
+    pts, a_i, k_i = k_msm["pts"], k_msm["a_i"], k_msm["k_i"]
     print(f"msm(): {STRAUS_POINTS} points (Straus)")
     want_s = H.aff_mul(curve, sum(a * k for a, k in zip(a_i[:STRAUS_POINTS],
-                                                        k_i[:STRAUS_POINTS])) % curve.n, G)
+                                                        k_i[:STRAUS_POINTS])) % curve.n,
+                       H.aff_generator(curve))
     K.reset_launches()
     t = time.perf_counter()
     got = M.msm(curve, pts[:STRAUS_POINTS], k_i[:STRAUS_POINTS])
@@ -1071,38 +1339,51 @@ def main() -> int:
     if K.launches["ladder"] <= 0:
         raise AssertionError("the Straus msm() did not launch the ladder kernel")
     print(f"  equals the host check; {straus_wall:.3f} s; launches {dict(K.launches)}")
+    del pts, a_i, k_i
     torch.cuda.synchronize()
-    phases = msm_phase_ms(core)        # last: a profiler run leaves overhead behind
+    phases = msm_phase_ms(k_msm["core"])     # last: a profiler run leaves overhead behind
     print(f"  device core by step (one profiled run), ms: {json.dumps(phases)}")
+    del k_msm["core"]
+
+    t10 = time.perf_counter()
+    q_msm = msm_phase(hold, p384, P384_MSM_POINTS, 18, dev, False, clock_hz)
+    del q_msm["core"]
+    wide_s += time.perf_counter() - t10
 
     # -- 9. the probes (before the record of step 8) ---------------------------
     probe_launches = probes(hold, probe_fields, dev)
 
     # -- 8. the record --------------------------------------------------------
     launches = {(curve, "padd_chain"): chain_launches,
-                (curve, "pow"): k256["verify_launches"]["pow"],
-                (curve, "ladder"): k256["verify_launches"]["ladder"],
-                (curve, "genmul"): k256["sign_launches"]["genmul"],
-                **{(curve, name): msm_launches[name]
-                   for name in ("segscan", "fixup", "bucket_reduce", "horner")},
-                **{(c, name): single[c.name][name] for c in curves
-                   for name in ("padd", "pdouble")},
                 (p256, "padd_chain"): p_chain_launches,
-                (p256, "pow"): p["verify_launches"]["pow"],
-                (p256, "ladder"): p["verify_launches"]["ladder"],
-                (p256, "genmul"): p["sign_launches"]["genmul"], **probe_launches}
+                (p384, "padd_chain"): q_chain_launches,
+                **{(c, name): r["verify_launches"][name]
+                   for c, r in zip((curve, p256, p384) + wide_curves, (k256, p, q, *wide.values()))
+                   for name in ("pow", "ladder")},
+                **{(c, "genmul"): (r["sign_launches"] or r["derive_launches"])["genmul"]
+                   for c, r in zip((curve, p256, p384) + wide_curves, (k256, p, q, *wide.values()))},
+                **{(c, name): m["launches"][name] for c, m in ((curve, k_msm), (p384, q_msm))
+                   for name in ("segscan", "fixup", "bucket_reduce", "horner")},
+                **{(c, name): single[c.name][name] for c in point_curves
+                   for name in ("padd", "pdouble")},
+                **{(get_curve(n), "pow"): fields_only[n]["pow"] for n in FIELD_CURVES},
+                **probe_launches}
     kernels = []
     for (c, name), count in launches.items():
         src, _, _, _, replaces = K.KERNELS[name]
         kernels.append({"name": row_name(name, c), "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
                         "launches": count, **rows[row_name(name, c)]})
-    for c, r in ((curve, k256), (p256, p)):
-        print(f"slice, {c.name}: {r['verify']:.1f} verifies/s (median of {VERIFY_RUNS}), "
-              f"{r['sign']:.1f} signs/s, {r['derive']:.1f} derives/s, {r['recover']:.1f} "
-              f"recovers/s (medians of {RUNS}), {r['adds']:.6g} adds/s")
-    print(f"msm, secp256k1: {msm_rate:.1f} MSM points/s (median of {MSM_RUNS}); "
-          f"chip_smoke took {time.perf_counter() - started:.1f} s")
+    for c, r in ((curve, k256), (p256, p), (p384, q)):
+        runs = P384_RUNS if c is p384 else RUNS
+        print(f"slice, {c.name}: {r['verify']:.1f} verifies/s (median of "
+              f"{P384_RUNS if c is p384 else VERIFY_RUNS}), {r['sign']:.1f} signs/s, "
+              f"{r['derive']:.1f} derives/s, {r['recover']:.1f} recovers/s (medians of "
+              f"{runs}), {r['adds']:.6g} adds/s")
+    print(f"msm, secp256k1: {k_msm['rate']:.1f} MSM points/s at 2^20 points; p384: "
+          f"{q_msm['rate']:.1f} at 2^16 (medians of {MSM_RUNS})")
+    print(f"build {build_s:.1f} s; the new curves' phases took {wide_s:.1f} s; chip_smoke "
+          f"took {time.perf_counter() - started:.1f} s")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

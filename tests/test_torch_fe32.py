@@ -2,8 +2,9 @@
 per-lane bodies of the nine kernels that run on it, `padd_chain`,
 `segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`, `pow`, `fixup`
 and the probe `ladder_probe`, built with g++ into one host harness per
-curve (secp256k1: a = 0, solinas fold, GLV beta; P-256: a = -3,
-Montgomery CIOS with the domain maps to and from the 13-bit plan's R;
+curve (tests/fe32_harness.py; secp256k1: a = 0, solinas fold, GLV beta;
+P-256: a = -3, Montgomery CIOS with the domain maps to and from the
+13-bit plan's R;
 each curve's scalar field, Montgomery with N0 != 1, as the traits
 Scalar32; the pow body also on bign256's base field and sm2's scalar
 field).
@@ -32,7 +33,6 @@ programs, which take most of it).
 import functools
 import pathlib
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -53,287 +53,31 @@ from tpu_ecc_torch.parallel import msm as M
 from tpu_ecc_torch.utils import ec_host as H
 from tpu_ecc_torch.utils.bigint import ints_to_limbs_np
 
+from fe32_harness import (_affine_limbs, _affine_of, _affine_pairs, _canonical, _domain,
+                          _from_words, _host_sum, _limb_ints, _mod_p, _steady_limbs,
+                          _steady_top, _to_words, compile_harness, runner)
+
 CURVES = ("secp256k1", "p256")
 B = 16
 
-_HARNESS = r"""
-#include <cstdio>
-#include <cstdlib>
-#include <cstring>
-#include <vector>
-#include "kfe_fe32.cuh"
-#include "point32.cuh"
-using C = Curve32;
-using namespace fe32;
-typedef std::vector<uint32_t> V;
-static V rd(size_t n) {
-  V v(n);
-  if (n && fread(v.data(), 4, n, stdin) != n) exit(4);
-  return v;
-}
-static void wr(const V& v) { fwrite(v.data(), 4, v.size(), stdout); }
-static E<C> el(const uint32_t* p) {
-  E<C> r;
-  for (int i = 0; i < C::N; ++i) r.w[i] = p[i];
-  return r;
-}
-static void put(V& out, size_t l, const E<C>& x) {
-  for (int i = 0; i < C::N; ++i) out[l * C::N + i] = x.w[i];
-}
-// pow on field T (Curve32 or Scalar32): x [NL, B], digits [ndig] -> out;
-// blocks of TL lanes share a table buffer, as the kernel's shared memory
-template <class T>
-static void run_pow(size_t n, int ndig, size_t TL) {
-  V x = rd(T::NL * n), dig = rd(ndig), out(T::NL * n), tbl(15 * T::N * TL, 0xFFFFFFFFu);
-  for (size_t l = 0; l < n; ++l)
-    pow_lane<T>(x.data(), out.data(), &tbl[l % TL], (uint32_t)TL, dig.data(), ndig, (int)n,
-                (int)l);
-  wr(out);
-}
-// ladder_probe variant K: bases [3, NL, B], mag, neg [nw, 2, B] -> out;
-// blocks of TL lanes share a table buffer, as the kernel's shared memory
-template <int K>
-static void run_probe(size_t n, int nw, size_t TL) {
-  V bases = rd(3 * C::NL * n), mag = rd(nw * 2 * n), neg = rd(nw * 2 * n),
-    out(3 * C::NL * n), tbl(TBL * 3 * C::N * TL, 0xFFFFFFFFu);
-  for (size_t l = 0; l < n; ++l)
-    ladder_probe_lane<C, K>(bases.data(), mag.data(), neg.data(), out.data(), &tbl[l % TL],
-                            (uint32_t)TL, nw, (int)n, (int)l);
-  wr(out);
-}
-// harness <mode> <lanes> [args]: uint32 arrays in on stdin, out on stdout
-int main(int argc, char** argv) {
-  if (argc < 3) return 2;
-  const char* m = argv[1];
-  const size_t n = (size_t)atoi(argv[2]), N = C::N, NL = C::NL, PN = 3 * C::NL;
-  if (!strcmp(m, "chain")) {  // chain B repeat: a, b [3, NL, B] -> out
-    const int repeat = atoi(argv[3]);
-    V a = rd(PN * n), b = rd(PN * n), out(PN * n);
-    for (size_t l = 0; l < n; ++l)
-      padd_chain_lane<C>(a.data(), b.data(), out.data(), (int)n, (int)l, repeat);
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "segscan")) {  // segscan L C nbuck signed
-    const int rows = atoi(argv[3]), sg = atoi(argv[5]);
-    const uint32_t nbuck = (uint32_t)atoi(argv[4]);
-    V key = rd(rows * n), val = rd(rows * PN * n), neg = rd(sg ? rows * n : 0);
-    V scanned(rows * PN * n, 0xFFFFFFFFu), last(n), tail(PN * n), lead(PN * n, 0xFFFFFFFFu);
-    for (size_t l = 0; l < n; ++l)
-      segscan_lane<C>(key.data(), val.data(), sg ? neg.data() : nullptr, scanned.data(),
-                      last.data(), tail.data(), lead.data(), rows, (int)n, nbuck, (int)l);
-    wr(scanned), wr(last), wr(tail), wr(lead);
-    return 0;
-  }
-  if (!strcmp(m, "double") || !strcmp(m, "mixed")) {  // a [3, NL, B] (x, y [2, NL, B])
-    V a = rd(PN * n), xy = rd(!strcmp(m, "mixed") ? 2 * NL * n : 0), out(PN * n);
-    for (size_t l = 0; l < n; ++l) {
-      const Pt<C> p = load_point<C>(&a[l], (uint32_t)n);
-      store_point<C>(xy.empty() ? pdouble<C>(p)
-                                : padd_mixed<C>(p, from_limbs<C>(&xy[l], (uint32_t)n),
-                                                from_limbs<C>(&xy[NL * n + l], (uint32_t)n)),
-                     &out[l], (uint32_t)n);
-    }
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "ladder")) {  // ladder B T H nw glv TL: blocks of TL lanes share a table
-    const int T = atoi(argv[3]), H = atoi(argv[4]), nw = atoi(argv[5]), glv = atoi(argv[6]);
-    const size_t TL = (size_t)atoi(argv[7]);
-    V bases = rd(T * PN * n), mag = rd(nw * H * n), neg = rd(nw * H * n), out(PN * n);
-    V tbl(T * TBL * 3 * N * TL, 0xFFFFFFFFu);
-    for (size_t l = 0; l < n; ++l)
-      ladder_lane<C>(bases.data(), mag.data(), neg.data(), out.data(), &tbl[l % TL],
-                     (uint32_t)TL, T, H, nw, glv != 0, (int)n, (int)l);
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "probe")) {  // probe B nw variant TL
-    const int nw = atoi(argv[3]), v = atoi(argv[4]);
-    const size_t TL = (size_t)atoi(argv[5]);
-    if (v == PROBE_BARE) run_probe<PROBE_BARE>(n, nw, TL);
-    else if (v == PROBE_UNROLL) run_probe<PROBE_UNROLL>(n, nw, TL);
-    else if (v == PROBE_BUILD) run_probe<PROBE_BUILD>(n, nw, TL);
-    else if (v == PROBE_SELECT) run_probe<PROBE_SELECT>(n, nw, TL);
-    else if (v == PROBE_NEGATE) run_probe<PROBE_NEGATE>(n, nw, TL);
-    else return 3;
-    return 0;
-  }
-  if (!strcmp(m, "genmul")) {  // genmul B nw threads: the prologue by `threads` threads
-    const int nw = atoi(argv[3]), threads = atoi(argv[4]), coords = nw * TBL * 2;
-    V tbl = rd(coords * NL), mag = rd(nw * n), neg = rd(nw * n), out(PN * n);
-    V ctab(coords * N, 0xFFFFFFFFu);
-    for (int t = 0; t < threads; ++t) genmul_table<C>(tbl.data(), ctab.data(), coords, t, threads);
-    for (size_t l = 0; l < n; ++l)
-      genmul_lane<C>(ctab.data(), mag.data(), neg.data(), out.data(), nw, (int)n, (int)l);
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "bucket")) {  // bucket total nbuck drop0: the launch's steps, rows -> rows
-    const uint32_t nb = (uint32_t)atoi(argv[3]), total = (uint32_t)n, groups = total / nb;
-    const bool drop0 = atoi(argv[4]) != 0;
-    V rows = rd(PN * n), out(PN * groups);
-    V bufs[2] = {V(3 * N * n, 0xFFFFFFFFu), V(3 * N * n, 0xFFFFFFFFu)};
-    const uint32_t* src = rows.data();
-    int k = 0;
-    for (uint32_t s = 1; s < nb; s *= 2, ++k) {
-      uint32_t* dst = bufs[k & 1].data();
-      for (uint32_t b = 0; b < total; ++b) {
-        if (s == 1) bucket_suffix_lane<C, true>(src, dst, s, nb, total, b);
-        else bucket_suffix_lane<C, false>(src, dst, s, nb, total, b);
-      }
-      src = dst;
-    }
-    for (uint32_t width = nb; width > 1; width /= 2, ++k) {
-      const uint32_t len = groups * width;
-      const bool z = drop0 && width == nb;
-      uint32_t* dst = width == 2 ? out.data() : bufs[k & 1].data();
-      for (uint32_t t = 0; t < len / 2; ++t) {
-        if (width == 2) bucket_pair_lane<C, true>(src, dst, width, len, z, t);
-        else bucket_pair_lane<C, false>(src, dst, width, len, z, t);
-      }
-      src = dst;
-    }
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "pow")) {  // pow B field ndig TL
-    const int field = atoi(argv[3]), ndig = atoi(argv[4]);
-    const size_t TL = (size_t)atoi(argv[5]);
-    if (field == 0) run_pow<Curve32>(n, ndig, TL);
-    else run_pow<Scalar32>(n, ndig, TL);
-    return 0;
-  }
-  if (!strcmp(m, "fixup")) {  // fixup lanes L: t_l, last_key, first_key, lead -> out
-    const uint32_t L = (uint32_t)atoi(argv[3]), lanes = (uint32_t)n;
-    V t = rd(PN * n), lk = rd(n), fk = rd(n), lead = rd(PN * n), out(PN * n);
-    V bufs[2] = {V(3 * N * n, 0xFFFFFFFFu), V(3 * N * n, 0xFFFFFFFFu)};
-    const uint32_t* src = t.data();
-    int k = 0;
-    for (uint32_t s = 1; s < L; s *= 2, ++k) {  // the launch's steps
-      uint32_t* dst = bufs[k & 1].data();
-      for (uint32_t l = 0; l < lanes; ++l) {
-        if (s == 1) fixup_step_lane<C, true>(src, dst, lk.data(), s, L, lanes, l);
-        else fixup_step_lane<C, false>(src, dst, lk.data(), s, L, lanes, l);
-      }
-      src = dst;
-    }
-    for (uint32_t l = 0; l < lanes; ++l)
-      fixup_final_lane<C>(src, lk.data(), fk.data(), lead.data(), out.data(), L, lanes, l);
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "horner")) {  // horner 1 nw w: s_all [nw, 3, NL] -> [3, NL]
-    const int nw = atoi(argv[3]), w = atoi(argv[4]);
-    V s_all = rd(nw * PN), out(PN);
-    horner_lane<C>(s_all.data(), out.data(), nw, w);
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "load")) {  // NL limbs a lane -> N words
-    V in = rd(NL * n), out(N * n);
-    for (size_t l = 0; l < n; ++l) put(out, l, from_limbs<C>(&in[l * NL], 1));
-    wr(out);
-    return 0;
-  }
-  if (!strcmp(m, "store")) {  // N words a lane -> NL limbs
-    V in = rd(N * n), out(NL * n);
-    for (size_t l = 0; l < n; ++l) to_limbs<C>(el(&in[l * N]), &out[l * NL], 1);
-    wr(out);
-    return 0;
-  }
-  const bool binary = !strcmp(m, "add") || !strcmp(m, "sub") || !strcmp(m, "mul");
-  V in = rd((binary ? 2 : 1) * N * n), out(N * n);
-  for (size_t l = 0; l < n; ++l) {
-    const E<C> a = el(&in[l * N]), b = binary ? el(&in[(n + l) * N]) : a;
-    E<C> r;
-    if (!strcmp(m, "add")) r = add<C>(a, b);
-    else if (!strcmp(m, "sub")) r = sub<C>(a, b);
-    else if (!strcmp(m, "mul")) r = mul<C>(a, b);
-    else if (!strcmp(m, "neg")) r = neg<C>(a);
-    else if (!strcmp(m, "sqr")) r = sqr<C>(a);
-    else if (!strcmp(m, "mul_b")) r = mul_b<C>(a);
-    else if (!strcmp(m, "mul_small")) r = mul_small<C>(a, (uint32_t)atoi(argv[3]));
-    else if (!strcmp(m, "mul_beta")) r = mul_beta<C>(a);
-    else return 3;
-    put(out, l, r);
-  }
-  wr(out);
-  return 0;
-}
-"""
 
 
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     """harness(curve name)(mode, lanes, *args, arrays=[...]) -> uint32 words."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("no g++")
     built = {}
 
     def get(cname):
         if cname not in built:
-            d = tmp_path_factory.mktemp(f"fe32-{cname}")
-            (d / "kfe_fe32.cuh").write_text(kfe.fe32_header(get_curve(cname)))
-            (d / "harness.cpp").write_text(_HARNESS)
-            exe = d / "harness"
-            subprocess.run([gxx, "-O0", "-std=c++17", "-I", str(d), "-I", kernels.CSRC,
-                            "-o", str(exe), str(d / "harness.cpp")],
-                           check=True, capture_output=True)
-            built[cname] = exe
-
-        def run(mode, lanes, *args, arrays):
-            data = b"".join(np.ascontiguousarray(a, np.uint32).tobytes() for a in arrays)
-            res = subprocess.run([str(built[cname]), mode, str(lanes), *map(str, args)],
-                                 input=data, capture_output=True, check=True)
-            return np.frombuffer(res.stdout, np.uint32)
-
-        return run
+            exe, proc = compile_harness(cname, tmp_path_factory.mktemp(f"fe32-{cname}"))
+            out, _ = proc.communicate()
+            assert proc.returncode == 0, out.decode()
+            built[cname] = runner(exe)
+        return built[cname]
 
     return get
-
-
-# ---------------------------------------------------------------------------
-# integers, words and limbs
-# ---------------------------------------------------------------------------
-
-def _to_words(vals, n):
-    """ints -> uint32 [lanes, n] (lane-major, as the harness's field modes)."""
-    return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(n)] for v in vals], np.uint32)
-
-
-def _from_words(arr):
-    return [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in arr]
-
-
-def _limb_ints(limbs, bits, axis=0):
-    """Little-endian limbs along `axis` -> the integers (numpy object array)."""
-    a = np.moveaxis(np.asarray(limbs), axis, 0).astype(object)
-    acc = np.zeros(a.shape[1:], object)
-    for i in reversed(range(a.shape[0])):
-        acc = acc * (1 << bits) + a[i]
-    return acc
-
-
-def _mod_p(curve, limbs, axis):
-    """Coordinates' integers mod p of limb arrays (limb axis `axis`)."""
-    return _limb_ints(limbs, curve.field.limb_bits, axis) % curve.p
-
-
-def _canonical(curve, limbs, axis):
-    """The limbs are below 2^13 and the integers below p."""
-    f = curve.field
-    assert int(np.asarray(limbs).max()) <= f.mask
-    assert (_limb_ints(limbs, f.limb_bits, axis) < f.p).all()
-
-
-def _domain(curve):
-    """(R32 or 1, R13 or 1): the layer's and the 13-bit plan's Montgomery R."""
-    f = curve.field
-    if f.kind != "mont":
-        return 1, 1
-    return 1 << (32 * kfe.FE32_N), f.W
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +94,7 @@ def _canonical_inputs(p, rng, count=B):
                                 "mul_beta"])
 def test_field_op_equals_ints(harness, cname, op):
     curve = get_curve(cname)
-    p, N = curve.p, kfe.FE32_N
+    p, N = curve.p, kfe.fe32_words(curve.field)
     r32, _ = _domain(curve)
     rng = np.random.default_rng(1)
     a = _canonical_inputs(p, rng)
@@ -368,12 +112,6 @@ def test_field_op_equals_ints(harness, cname, op):
     assert got == [want(x, y) % p for x, y in zip(a, b)]
 
 
-def _steady_top(spec):
-    """The largest steady value: carried_vmax (solinas: every limb at the
-    mask, 2^260 - 1) or 4p - 1 (Montgomery)."""
-    return spec.carried_vmax if spec.kind == "solinas" else 4 * spec.p - 1
-
-
 @pytest.mark.parametrize("cname", CURVES)
 def test_load_converter_equals_ints(harness, cname):
     """13-bit steady limbs -> canonical words in the layer's domain:
@@ -388,7 +126,7 @@ def test_load_converter_equals_ints(harness, cname):
         int.from_bytes(rng.bytes(40), "big") % (top + 1) for _ in range(B - 5)]
     limbs = ints_to_limbs_np(vals, f.n_limbs, f.limb_bits).T
     assert int(limbs.max()) <= f.mask
-    got = _from_words(harness(cname)("load", B, arrays=[limbs]).reshape(B, kfe.FE32_N))
+    got = _from_words(harness(cname)("load", B, arrays=[limbs]).reshape(B, kfe.fe32_words(f)))
     assert got == [v * pow(r13, -1, f.p) * r32 % f.p for v in vals]
 
 
@@ -400,7 +138,7 @@ def test_store_converter_equals_ints(harness, cname):
     f = curve.field
     r32, r13 = _domain(curve)
     vals = _canonical_inputs(f.p, np.random.default_rng(3))
-    out = harness(cname)("store", B, arrays=[_to_words(vals, kfe.FE32_N)])
+    out = harness(cname)("store", B, arrays=[_to_words(vals, kfe.fe32_words(f))])
     out = out.reshape(B, f.n_limbs)
     _canonical(curve, out, 1)
     assert list(_limb_ints(out, f.limb_bits, 1)) == [
@@ -410,40 +148,6 @@ def test_store_converter_equals_ints(harness, cname):
 # ---------------------------------------------------------------------------
 # the point add and the chain body
 # ---------------------------------------------------------------------------
-
-def _affine_pairs(curve):
-    """(a, b) affine pairs, None for O: O + O, P + O, O + P, P + P,
-    P + (-P), then random pairs."""
-    rng = np.random.default_rng(4)
-    G = H.aff_generator(curve)
-    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, 2 * B)]
-    a, b = pts[:B], pts[B:]
-    a[0] = b[0] = None
-    b[1] = None
-    a[2] = None
-    b[3] = a[3]
-    b[4] = (a[4][0], curve.p - a[4][1])
-    return a, b
-
-
-def _steady_limbs(curve, pts, rng):
-    """Steady projective limbs uint32 [3, n, B] of affine points with random
-    representatives: X, Y scaled by a random Z, each coordinate plus a
-    random multiple of p that stays steady."""
-    f = curve.field
-    top = _steady_top(f)
-    coords = [[], [], []]
-    for pt in pts:
-        if pt is None:
-            xyz = (0, 1, 0)
-        else:
-            z = int(rng.integers(1, 2**62))
-            xyz = (pt[0] * z % curve.p, pt[1] * z % curve.p, z)
-        for c, v in zip(coords, xyz):
-            v = f.encode_int(v)
-            c.append(v + int(rng.integers(0, (top - v) // f.p + 1)) * f.p)
-    return np.stack([ints_to_limbs_np(c, f.n_limbs, f.limb_bits) for c in coords], 0)
-
 
 @functools.lru_cache(maxsize=None)
 def _jax_padd(cname):
@@ -501,26 +205,6 @@ def _jax_point_op(cname, op):
         return jax.jit(lambda a: JP.point_limbs(JP.pdouble(JP.point_from_limbs(jc, a))))
     return jax.jit(lambda a, xy: JP.point_limbs(JP.padd_mixed(
         JP.point_from_limbs(jc, a), JF.fe_steady(f, xy[0]), JF.fe_steady(f, xy[1]))))
-
-
-def _affine_of(curve, limbs):
-    """Steady point limbs [3, n, B] -> [(x, y) or None for O]."""
-    x, y, inf = P.to_affine(P.point_from_limbs(curve, torch.from_numpy(limbs.astype(np.int64))))
-    return [None if i else (xv, yv) for xv, yv, i in
-            zip(F.fe_to_ints(x), F.fe_to_ints(y), inf.tolist())]
-
-
-def _affine_limbs(curve, pts, rng):
-    """Steady limbs uint32 [2, n, B] of affine points (x, y) in the field's
-    encoding, each plus a random multiple of p that stays steady."""
-    f = curve.field
-    top = _steady_top(f)
-    coords = [[], []]
-    for pt in pts:
-        for c, v in zip(coords, pt):
-            v = f.encode_int(v)
-            c.append(v + int(rng.integers(0, (top - v) // f.p + 1)) * f.p)
-    return np.stack([ints_to_limbs_np(c, f.n_limbs, f.limb_bits) for c in coords], 0)
 
 
 @pytest.mark.parametrize("cname", CURVES)
@@ -721,14 +405,6 @@ def test_segscan_body_equals_plain(harness, signed):
 # the bucket_reduce and horner bodies
 # ---------------------------------------------------------------------------
 
-def _host_sum(curve, terms):
-    """sum k * P over (k, P or None) by the host oracle."""
-    acc = None
-    for k, pt in terms:
-        acc = H.aff_add(curve, acc, H.aff_mul(curve, k, pt))
-    return acc
-
-
 @pytest.mark.parametrize("drop0", [False, True], ids=["signed", "drop0"])
 @pytest.mark.parametrize("cname", CURVES)
 def test_bucket_body_equals_plain(harness, cname, drop0):
@@ -911,7 +587,7 @@ def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
     for name in kernels.FE32_KERNELS:
         assert kernels.includes(kernels.KERNELS[name][0]) == ["fe32.cuh", "point32.cuh"]
         assert kernels.functions(name, get_curve("secp256k1")) == ()
-    assert kernels.includes("padd.cu") == []
+    assert kernels.includes("fmul_chain.cu") == []      # the 13-bit generated code
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
     monkeypatch.setattr(kernels, "CSRC", str(src))
@@ -921,6 +597,16 @@ def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
         fh.write("// changed\n")
     assert kernels._target("segscan", curve)[0] != before
     assert "Curve32" in kernels._target("segscan", curve)[2]
+
+
+@pytest.mark.parametrize("cname", ["secp256k1", "p521", "bp256t1"])
+def test_padd_is_the_chain_library_at_one_add(cname):
+    """`padd` launches padd_chain's library (one build a curve serves
+    both), and its launches count as padd's."""
+    curve = get_curve(cname)
+    assert kernels.KERNELS["padd"][:3] == kernels.KERNELS["padd_chain"][:3]
+    assert kernels._target("padd", curve) == kernels._target("padd_chain", curve)
+    assert "padd" in kernels.launches and "padd_chain" in kernels.launches
 
 
 @pytest.mark.parametrize("cname", CURVES)
@@ -952,13 +638,15 @@ def test_fe32_counts_and_constants(cname):
     assert "struct Scalar32" in kfe.fe32_header(curve) and s["MONT"]
     assert sum(w << (32 * i) for i, w in enumerate(s["p"])) == n.p
     assert s["N0"] * n.p % (1 << 32) == (1 << 32) - 1 and s["N0"] != 1
-    R = 1 << (32 * kfe.FE32_N)                              # R32; R13 = n.W
+    N = kfe.fe32_words(curve.field)
+    R = 1 << (32 * N)                                       # R32; R13 = n.W
     to32 = sum(w << (32 * i) for i, w in enumerate(s["to32"]))
     to13 = sum(w << (32 * i) for i, w in enumerate(s["to13"]))
     assert to32 * pow(R, -1, n.p) % n.p == R * pow(n.W, -1, n.p) % n.p   # v R13 -> v R32
     assert to13 == n.W % n.p                                # x R32 -> x R13
     assert sum(w << (32 * i) for i, w in enumerate(s["one"])) == R % n.p
-    shapes = {"padd_chain": dict(repeat=16), "ladder": dict(T=2, nw=34, glv=bool(curve.glv)),
+    shapes = {"padd": {}, "pdouble": {}, "padd_chain": dict(repeat=16),
+              "ladder": dict(T=2, nw=34, glv=bool(curve.glv)),
               "genmul": dict(nw=65),
               "segscan": dict(C=64, adds=2000, ends=500, signed=True),
               "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14),
@@ -974,8 +662,7 @@ def test_fe32_counts_and_constants(cname):
     assert c["mul_beta"] == c["mul"]
     cn = kfe.fe32_counts(n)
     assert set(cn) == {"add", "sub", "neg", "mul", "sqr", "load", "store"}
-    assert cn["mul"]["imad"] == cn["sqr"]["imad"] == kfe.FE32_N   # CIOS's m = t0 N0, once a word
-    N = kfe.FE32_N
+    assert cn["mul"]["imad"] == cn["sqr"]["imad"] == N   # CIOS's m = t0 N0, once a word
     for counts in (c, cn):                 # a squaring's N(N+1)/2 products against N^2
         assert counts["sqr"]["wide"] == counts["mul"]["wide"] - N * (N - 1) // 2
     with pytest.raises(NotImplementedError):
@@ -1004,32 +691,26 @@ def test_padd_count_follows_point32(tmp_path, monkeypatch):
     assert ops("padd_mixed", "a0")["mul"] == 11
 
 
-# the curves whose two fields the layer takes at 8 words; `pow` builds for
-# them alone (the others' p has another width, or its 2^256 mod p is too wide)
-POW_CURVES = {"secp256k1", "p256", "sm2", "bign256"}
+# the curves whose two fields the layer takes, each at the curve's own word
+# count: every registered curve
+POW_CURVES = set(list_curves())
 
 
 @pytest.mark.parametrize("cname", list_curves())
 def test_pow_builds_for_the_fields_on_the_layer(cname):
     """`pow`'s header needs only the curve's two fields: it builds for every
-    curve whose fields fit the layer, whatever its formulas, and `fpow`
-    raises NotImplementedError for the others before it touches a device
-    (a meta tensor: a field that fits gets as far as the CUDA check)."""
+    curve, whatever its formulas (the Brainpool r1 curves' generic a
+    among them), and `fpow` gets as far as the CUDA check (a meta
+    tensor)."""
     curve = get_curve(cname)
     fits = not (kfe.fe32_fits(curve.field) or kfe.fe32_fits(curve.scalar))
     assert fits == (cname in POW_CURVES)
     x = torch.empty((curve.field.n_limbs, 4), dtype=torch.int64, device="meta")
-    if fits:
-        header = kernels._header("pow", curve)
-        assert "struct Curve32" in header and "struct Scalar32" in header
-        assert "A0" not in header and "bmul" not in header
-        with pytest.raises(ValueError, match="CUDA"):
-            kernels.fpow(curve.field, x, curve.p - 2)
-    else:
-        with pytest.raises(NotImplementedError):
-            kernels._header("pow", curve)
-        with pytest.raises(NotImplementedError, match="pow on the card"):
-            kernels.fpow(curve.field, x, curve.p - 2)
+    header = kernels._header("pow", curve)
+    assert "struct Curve32" in header and "struct Scalar32" in header
+    assert "A0" not in header and "bmul" not in header
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fpow(curve.field, x, curve.p - 2)
 
 
 @pytest.mark.parametrize("const,src,macro", [
@@ -1047,10 +728,11 @@ def test_block_sizes_follow_the_sources(const, src, macro):
 
 def test_ladder_lanes_follow_shared_memory():
     """A block of the ladder takes 32 lanes up to T = 8 (the Straus MSM's
-    221 KB), fewer above, and a T whose one-lane tables (864 B a base)
-    exceed a block's 227 KB raises."""
-    assert kernels.ladder_lanes(1) == kernels.ladder_lanes(8) == 32
-    assert kernels.ladder_lanes(9) == kernels.SMEM_BLOCK // (9 * 864) == 29
-    assert kernels.ladder_lanes(269) == 1
+    221 KB at secp256k1's N = 8), fewer above, and a T whose one-lane
+    tables (864 B a base) exceed a block's 227 KB raises."""
+    k256 = get_curve("secp256k1")
+    assert kernels.ladder_lanes(1, k256) == kernels.ladder_lanes(8, k256) == 32
+    assert kernels.ladder_lanes(9, k256) == kernels.SMEM_BLOCK // (9 * 864) == 29
+    assert kernels.ladder_lanes(269, k256) == 1
     with pytest.raises(ValueError):
-        kernels.ladder_lanes(270)
+        kernels.ladder_lanes(270, k256)

@@ -1,9 +1,9 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
 Each kernel must equal its twin limb for limb (tolerance: exact), except
-the nine on the 32-bit field layer (padd_chain, segscan, ladder, genmul,
-bucket_reduce, horner, pow, fixup, ladder_probe), which store canonical
-values: pow's element and each projective coordinate of the others must
+the eleven on the 32-bit field layer (padd, pdouble, padd_chain, segscan,
+ladder, genmul, bucket_reduce, horner, pow, fixup, ladder_probe), which
+store canonical values: pow's element and each projective coordinate of the others must
 equal the twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
 run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
@@ -43,6 +43,10 @@ def k256():
 
 
 CURVES = ["secp256k1", "p256"]      # a = 0 (solinas field), a = -3 (Montgomery)
+# every curve with a = 0 or a = -3: the layer at N = 6 (p192), 7 (p224), 8,
+# 12 (p384, bp384t1) and 17 (p521)
+POINT_CURVES = CURVES + ["p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1", "bp384t1"]
+WIDE_CURVES = POINT_CURVES[2:]
 
 
 def _points(curve, seed, b, dev):
@@ -55,10 +59,12 @@ def _points(curve, seed, b, dev):
     return P.point_limbs(P.steady(Q))
 
 
-@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("name", POINT_CURVES)
 def test_padd_and_pdouble_match_plain(dev, name):
-    """One add and one doubling per lane, with a doubling lane (a = b), an
-    inverse pair (a = -b) and identities among the random lanes."""
+    """One add and one doubling per lane (the 32-bit layer at the curve's
+    word count), with a doubling lane (a = b), an inverse pair (a = -b) and
+    identities among the random lanes: equal mod p by canonical
+    coordinates, the kernel's limbs canonical, and the host oracle's sums."""
     curve = get_curve(name)
     a = _points(curve, 1, B, dev)
     b = _points(curve, 2, B, dev).clone()
@@ -69,10 +75,10 @@ def test_padd_and_pdouble_match_plain(dev, name):
     b[:, :, 4] = ident
     out = kernels.padd(curve, a, b)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.padd_plain(curve, a, b))
+    _same_mod_p(curve, out, kernels.padd_plain(curve, a, b))
     out = kernels.pdouble(curve, a)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.pdouble_plain(curve, a))
+    _same_mod_p(curve, out, kernels.pdouble_plain(curve, a))
     pa, pb = P.point_from_limbs(curve, a), P.point_from_limbs(curve, b)
     a_aff, b_aff = _affine(curve, a), _affine(curve, b)
     assert _affine(curve, P.point_limbs(kernels.padd_points(pa, pb))) == \
@@ -131,15 +137,25 @@ def test_pow_matches_plain(dev, name, field):
 
 @pytest.mark.parametrize("name", ["p384", "bp256r1"])
 def test_pow_refuses_fields_off_the_layer(dev, name):
-    """A curve whose fields the 32-bit layer cannot take (P-384: 384 bits;
-    bp256r1: 2^256 mod p too wide) has no pow on the card: the wrapper
-    raises NotImplementedError and launches nothing."""
+    """No field is off the layer any more: P-384 (12 words) and bp256r1
+    (whose rows load by mont(lo, to32) + mont(to32h, h)) run pow on the
+    card on both fields, one launch each, equal mod p to the twin by
+    canonical limbs, and x^-1 by Python."""
     curve = get_curve(name)
-    x = F.fsteady(F.fe_from_ints(curve.field, [2, 3], dev)).limbs
-    kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="pow on the card"):
-        kernels.fpow(curve.field, x, curve.p - 2)
-    assert kernels.launches["pow"] == 0
+    rng = np.random.default_rng(4)
+    for spec in (curve.field, curve.scalar):
+        xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p for _ in range(B)]
+        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+        kernels.reset_launches()
+        out = kernels.fpow(spec, x, spec.p - 2)
+        torch.cuda.synchronize()
+        assert kernels.launches["pow"] == 1
+        canonical = F.fcanonical(F.fe_steady(spec, out.to(torch.int64))).limbs
+        assert torch.equal(canonical, out.to(torch.int64))
+        want = kernels.fpow_plain(spec, x, spec.p - 2)
+        assert torch.equal(canonical, F.fcanonical(F.fe_steady(spec, want)).limbs)
+        assert F.fe_to_ints(F.fe_steady(spec, out)) == [pow(v, -1, spec.p) if v else 0
+                                                        for v in xs]
 
 
 def _same_mod_p(curve, out, want):
@@ -321,6 +337,119 @@ def test_msm_on_the_card_equals_host(dev, k256, n_points):
     assert M.msm(k256, pts, k) == want
     used = ("segscan", "fixup", "bucket_reduce", "horner") if n_points >= 1 << 14 else ("ladder",)
     assert all(kernels.launches[name] > 0 for name in used)
+
+
+@pytest.mark.parametrize("name", WIDE_CURVES + ["bp256r1", "bp384r1"])
+def test_wide_builds_match_plain(dev, name):
+    """Each build of the curves the layer takes at their own word count
+    against its twin, by canonical values mod p: pow on both fields at e =
+    p - 2; for the curves with a = -3 formulas also the ladder (T = 2
+    without GLV, 3 windows) and genmul (the first 12 windows of the
+    comb)."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    curve = get_curve(name)
+    rng = np.random.default_rng(7)
+    for spec in (curve.field, curve.scalar):
+        xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p for _ in range(B)]
+        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+        out = kernels.fpow(spec, x, spec.p - 2)
+        torch.cuda.synchronize()
+        want = kernels.fpow_plain(spec, x, spec.p - 2)
+        assert torch.equal(F.fcanonical(F.fe_steady(spec, out.to(torch.int64))).limbs,
+                           F.fcanonical(F.fe_steady(spec, want)).limbs)
+    if name not in WIDE_CURVES:
+        return
+    bases, mag, neg = _random_ladder(curve, 2, 2, 3, B, dev, 50)
+    out = kernels.ladder(curve, bases, mag, neg)
+    torch.cuda.synchronize()
+    _same_mod_p(curve, out, kernels.ladder_plain(curve, bases, mag, neg))
+    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(curve.scalar_bytes), "big")
+                             for _ in range(B - 2)]
+    mag, neg = SM.signed_digits(curve, SM.pack_scalars(curve, ks, dev))
+    mag, neg, tbl = mag.flip(0)[:12], neg.flip(0)[:12], SM._gen_table(curve, dev)[:12]
+    out = kernels.genmul(curve, tbl, mag, neg)
+    torch.cuda.synchronize()
+    _same_mod_p(curve, out, kernels.genmul_plain(curve, tbl, mag, neg))
+
+
+@pytest.mark.parametrize("name", ["bp256r1", "bp384r1"])
+def test_generic_curves_point_kernels_raise(dev, name):
+    """The r1 curves' generic a has no formulas on the layer (nor in the
+    plain layer): the ladder and genmul raise NotImplementedError and
+    launch nothing."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    curve = get_curve(name)
+    n = curve.field.n_limbs
+    kernels.reset_launches()
+    bases = torch.zeros((1, 3, n, 4), dtype=torch.int64, device=dev)
+    dig = torch.zeros((2, 1, 4), dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError):
+        kernels.ladder(curve, bases, dig, dig)
+    with pytest.raises(NotImplementedError):
+        kernels.genmul(curve, torch.zeros((2, kernels.TBL, 2, n), dtype=torch.int64, device=dev),
+                       dig[:, 0], dig[:, 0])
+    with pytest.raises(NotImplementedError):
+        SM.derive_public_batch(curve, [1, 2])
+    assert sum(kernels.launches.values()) == 0
+
+
+def test_ladder_straus_shape_on_p521(dev):
+    """P-521's T = 8 with 3N = 51 words a point: 14688 B of tables a lane,
+    so a block takes 15 lanes (the kernel's stride-in-a-register
+    instance), on 3 windows; equal mod p by canonical coordinates."""
+    p521 = get_curve("p521")
+    assert kernels.ladder_lanes(8, p521) == 15
+    bases, mag, neg = _random_ladder(p521, 8, 8, 3, 64, dev, 60)
+    out = kernels.ladder(p521, bases, mag, neg)
+    torch.cuda.synchronize()
+    _same_mod_p(p521, out, kernels.ladder_plain(p521, bases, mag, neg))
+
+
+def test_msm_phases_on_p384_match_plain(dev):
+    """P-384's builds of padd_chain, segscan, fixup, bucket_reduce and
+    horner at small shapes (N = 512, 32 lanes, w = 8, 2 windows; the
+    chain at repeat 3; horner over 5 window sums), each by canonical
+    coordinates mod p against its twin, and msm() at 2^14 points equal to
+    the host's (sum a_i k_i mod n) G with the four phase kernels
+    launched."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import msm as M
+
+    p384 = get_curve("p384")
+    a, b = _points(p384, 1, B, dev), _points(p384, 2, B, dev)
+    out = kernels.padd_chain(p384, a, b, 3)
+    torch.cuda.synchronize()
+    _same_mod_p(p384, out, kernels.padd_chain_plain(p384, a, b, 3))
+    (skey, key2, val2, neg2), nbuck = _window_group(p384, dev, 512, 32, 8, True, 2)
+    got = kernels.segscan(p384, key2, val2, nbuck, neg2)
+    want = kernels.segscan_plain(p384, key2, val2, nbuck, neg2)
+    torch.cuda.synchronize()
+    ends = torch.ones_like(key2, dtype=torch.bool)
+    ends[:-1] = key2[1:] != key2[:-1]
+    assert torch.equal(*[_canonical(p384, sc.movedim(0, 2)[:, :, ends])
+                         for sc in (got[0], want[0])])
+    scanned, last_key, tail, lead = want
+    fixed = kernels.fixup(p384, tail, last_key, key2[0], lead)
+    torch.cuda.synchronize()
+    _same_mod_p(p384, fixed, kernels.fixup_plain(p384, tail, last_key, key2[0], lead))
+    buckets = M.bucket_lookup(p384, skey, scanned, fixed, key2[0], nbuck)
+    out = kernels.bucket_reduce(p384, buckets, False)
+    torch.cuda.synchronize()
+    _same_mod_p(p384, out, kernels.bucket_reduce_plain(p384, buckets, False))
+    s_all = _points(p384, 21, 5, dev).permute(2, 0, 1).contiguous()
+    out = kernels.horner(p384, s_all, 14)
+    torch.cuda.synchronize()
+    _same_mod_p(p384, out, kernels.horner_plain(p384, s_all, 14))
+    rng = np.random.default_rng(8)
+    ai = [int.from_bytes(rng.bytes(48), "big") % (p384.n - 1) + 1 for _ in range(1 << 14)]
+    ki = [int.from_bytes(rng.bytes(48), "big") % p384.n for _ in range(1 << 14)]
+    pts = SM.derive_public_batch(p384, ai)
+    kernels.reset_launches()
+    assert M.msm(p384, pts, ki) == ec_host.aff_mul(
+        p384, sum(x * y for x, y in zip(ai, ki)) % p384.n, ec_host.aff_generator(p384))
+    assert all(kernels.launches[k] > 0 for k in ("segscan", "fixup", "bucket_reduce", "horner"))
 
 
 # the probe kernels (tpu_ecc_torch/tools/)

@@ -98,8 +98,8 @@ static ladder_fn ladder_form(int lanes) {
 }
 
 // bases [T, 3, n, B]; mag, neg [nw, H, B]; out [3, n, B]; `lanes` a block
-// (kernels.ladder_lanes: at most 32, with T * 864 B * lanes of shared
-// memory).
+// (kernels.ladder_lanes: at most 32, with T * 9 * 3N words * lanes of
+// shared memory: 864 B a base and lane at N = 8, 3672 B at P-521's 17).
 extern "C" int ladder_launch(const void* bases, const void* mag, const void* neg, void* out,
                              int T, int H, int nw, int glv, int B, int lanes, int* launched,
                              void* stream) {

@@ -2,7 +2,11 @@
 // point-add workload and the headline point-adds/s.
 //
 // Replaces tpu_ecc/ops/pallas_kernels.py padd_chain_call (:426-459), which
-// ran the chain on [S, 128] VMEM tiles per grid block.
+// ran the chain on [S, 128] VMEM tiles per grid block. At repeat = 1 it is
+// also `padd` (kernels.padd launches this library and counts the launch as
+// padd's), replacing _padd_call (:379-400), the single fused add behind
+// padd_pallas (:1239): one build a curve serves both, and the add alone on
+// the card is the chain's own.
 //
 // Design: one thread per batch lane on the 32-bit field layer (fe32.cuh,
 // point32.cuh; the lane body is fe32::padd_chain_lane). The lane loads its
@@ -28,7 +32,13 @@
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8): 188 registers (secp256k1), 168
 // (P-256), 0 bytes of stack, spill stores and spill loads; chip_smoke.py
-// prints them at each build and fails on a spill.
+// prints them at each build and fails on a spill at N = 8 words. On a curve
+// whose base field rows load by two Montgomery products (the Brainpool
+// fields: every word of p dense, N0 != 1) the build runs ptxas at -O1
+// (kernels.DENSE_CHAIN_PTXAS): at -O3 bp256t1's add takes 255 registers
+// and spills 28 B, at -O1 239 and none, as fast; the other curves build at
+// -O3, where secp256k1's chain is 7.5% faster than at -O1
+// (tools/bench_blocks.py padd_chain).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

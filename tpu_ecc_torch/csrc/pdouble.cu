@@ -3,31 +3,35 @@
 // Replaces tpu_ecc/ops/pallas_kernels.py _pdouble_call (:403-423), the
 // single fused doubling behind pdouble_pallas (:1251).
 //
-// Design: one thread per batch lane; the point loads once (limb-major
-// [3, n, B], coalesced per limb), one call of the generated straight-line
-// kfe_pdouble (ops/kfe.py: Algorithm 9 for a = 0, Algorithm 6 for a = -3,
-// ksteady out), one store; the ragged edge is masked. Like padd, it pins
-// one formula alone on the card.
+// Design: one thread per batch lane on the 32-bit field layer (fe32.cuh,
+// point32.cuh), at the curve's own word count. The lane loads its point
+// once from the 13-bit rows (limb-major [3, n, B], coalesced per limb) into
+// words in registers, runs one force-inlined RCB doubling (Algorithm 9 for
+// a = 0, 6 for a = -3), and stores the result once, canonical, in 13-bit
+// limbs: each coordinate equal mod p to the plain twin's. The ragged edge
+// is masked. Like padd, it pins one formula alone on the card.
 //
-// Bound: operations — one doubling (6.6k 32-bit integer instructions for
-// secp256k1, 11.3k for P-256, the generator's count) against 3n words in
-// and 3n out.
+// Bound: operations (one doubling, kernels.work design "fe32": 1832
+// instructions on secp256k1, 3837 on P-256, 8381 on P-384, 9238 on P-521,
+// plus the three loads and three stores) against bytes (6 n int32 limbs a
+// lane in and out). A single launch at B = 8192 is 256
+// warps, under one a scheduler: its time is the launch and one doubling's
+// latency.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_pdouble.cuh"
+#include "point32.cuh"
 
-#define PN (3 * KFE_FP_N)
 #define THREADS 32
 
-__global__ void pdouble_kernel(const uint32_t* __restrict__ a,
-                               uint32_t* __restrict__ out, int B) {
+__global__ void __launch_bounds__(THREADS)
+    pdouble_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, int B) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  uint32_t p[PN], r[PN];
-  for (int k = 0; k < PN; ++k) p[k] = a[(size_t)k * B + lane];
-  kfe_pdouble(p, r);
-  for (int k = 0; k < PN; ++k) out[(size_t)k * B + lane] = r[k];
+  const uint32_t Bw = (uint32_t)B;
+  fe32::store_point<Curve32>(fe32::pdouble<Curve32>(fe32::load_point<Curve32>(a + lane, Bw)),
+                             out + lane, Bw);
 }
 
 extern "C" int pdouble_launch(const void* a, void* out, int B, int* launched,

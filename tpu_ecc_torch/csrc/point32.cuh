@@ -1,8 +1,9 @@
 // point32.cuh: projective points on the 32-bit field layer (fe32.cuh), the
 // complete RCB 2015 formulas, and the per-lane bodies of the kernels that run
-// on it (padd_chain.cu, segscan.cu, ladder.cu, genmul.cu, bucket_reduce.cu,
-// horner.cu, pow.cu, fixup.cu and ladder_probe.cu keep only the launch; pow's
-// body is a field chain, on either of a curve's two fields).
+// on it (pdouble.cu, padd_chain.cu (also padd's), segscan.cu, ladder.cu,
+// genmul.cu, bucket_reduce.cu, horner.cu, pow.cu, fixup.cu and
+// ladder_probe.cu keep only the launch; pow's body is a field chain, on
+// either of a curve's two fields).
 //
 // The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
 // add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
@@ -13,7 +14,8 @@
 // differ, because every value here is canonical (fe32.cuh) and the rows are
 // stored canonical.
 //
-// Everything is force-inlined: a point is 3N words (24 registers at N = 8),
+// Everything is force-inlined: a point is 3N words (24 registers at N = 8,
+// 51 at P-521's N = 17, where the kernels spill),
 // and each formula with its temporaries lives in registers, with no call
 // and no stack between the field operations.
 #pragma once

@@ -11,7 +11,7 @@ the plain PyTorch twin beside each.
 | `fixup`      | csrc/fixup.cu      | `fixup_call` :647                        |
 | `bucket_reduce` | csrc/bucket_reduce.cu | `bucket_reduce_call` :733             |
 | `horner`     | csrc/horner.cu     | `horner_call` :814                       |
-| `padd`       | csrc/padd.cu       | `_padd_call` :379                        |
+| `padd`       | csrc/padd_chain.cu | `_padd_call` :379 (the chain at one add) |
 | `pdouble`    | csrc/pdouble.cu    | `_pdouble_call` :403                     |
 
 and the four kernels of the probe tools (tpu_ecc_torch/tools/), which replace
@@ -25,25 +25,29 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Nine of them, `padd_chain`, `segscan`,
-`ladder`, `genmul`, `bucket_reduce`, `horner`, `pow`, `fixup` and the
-probe `ladder_probe` (FE32_KERNELS), run on the hand-written 32-bit field
-layer (csrc/fe32.cuh, csrc/point32.cuh): they convert their 13-bit rows to
-8 words an element on load, keep the point or element in registers, and
-store canonical 13-bit limbs; their generated header holds only constants
-(`kfe.fe32_header`: the curve's `Curve32`, with the GLV beta where the
-curve has an endomorphism, and its scalar field's `Scalar32`, on which
-`pow` runs for field 1). `ladder` and `ladder_probe` build their tables
+[.., n, B] uint32 arrays. Eleven of them, `padd`, `pdouble`,
+`padd_chain`, `segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`,
+`pow`, `fixup` and the probe `ladder_probe` (FE32_KERNELS), run on the
+hand-written 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh): they
+convert their 13-bit rows to N words an element on load (N the curve's
+own, `kfe.fe32_words`: 6 for P-192 up to 17 for P-521), keep the point or
+element in registers, and store canonical 13-bit limbs; their generated
+header holds only constants (`kfe.fe32_header`: the curve's `Curve32`,
+with the GLV beta where the curve has an endomorphism, and its scalar
+field's `Scalar32`, on which `pow` runs for field 1). They build for
+every curve with a = 0 or a = -3; `pow`, which needs the two fields alone,
+also for bp256r1 and bp384r1, whose generic-a formulas the layer lacks
+(their point kernels raise NotImplementedError, as their plain formulas
+do). `ladder` and `ladder_probe` build their tables
 [O, Q, .., 8Q] in shared memory (`ladder_lanes`; the probe's one table a
 lane at PROBE_LANES lanes a block), `genmul` converts the comb into shared
 memory once a block, `pow` keeps its table x..x^15 in shared memory,
 `bucket_reduce` and `fixup` keep their points as words in a scratch
-between their steps. `padd`, `pdouble`, `fmul_chain` and `mxu_chain` call
-straight-line field and point functions that ops/kfe.py generates from the
-KFE bound ledger into a header per (target, kernel). A target is a curve
-(the a = 0 formulas for secp256k1, the a = -3 ones for P-256 and the other
-a = -3 curves), a bare field spec (`fmul_chain`, `mxu_chain`: its
-multiply, its limb count and width), or None (`dma_gather`, which has no
+between their steps. `fmul_chain` and `mxu_chain` call straight-line
+field functions that ops/kfe.py generates from the KFE bound ledger into a
+header per (target, kernel). A target is a curve, a bare field spec
+(`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
+None (`dma_gather`, which has no
 generated header: a ring of `cp.async.bulk` row copies in each warp's
 shared memory, GATHER_WARPS warps a block, at most GATHER_ROWS rows a
 warp). The
@@ -57,7 +61,7 @@ Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
 The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the nine
+so a kernel's output equals its twin's limb for limb; for the eleven
 kernels on the 32-bit layer, `pow`'s element and each projective
 coordinate of the others equal the twin's mod p (the same operations in
 the same order; the limb plan differs, and the kernels store canonical
@@ -98,14 +102,23 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DENSE_CHAIN_PTXAS = "-O1"
+"""ptxas's optimisation level for csrc/padd_chain.cu (the body of both
+`padd_chain` and `padd`, the chain at one add) on a curve whose base field
+rows load by two Montgomery products (kfe's MLOAD: the Brainpool fields,
+every word of p dense, N0 != 1): at ptxas's default -O3 bp256t1's inlined
+add spills 28 B, the one build at N = 8 words that does; at -O1 it has
+none and runs as fast. Every other source and curve builds at -O3, where
+secp256k1's chain runs 7.5% faster than at -O1 (PERF.md, tools/bench_blocks.py)."""
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, generated functions, C entry point, its argtypes before
-#          the launch count and the stream, the TPU kernel it replaces)
+#          the launch count and the stream, the TPU kernel it replaces);
+# `padd` launches padd_chain's library at one add and counts as `padd`
 KERNELS = {
-    "padd": ("padd.cu", ("padd",), "padd_launch", [_VP, _VP, _VP, _I],
+    "padd": ("padd_chain.cu", (), "padd_chain_launch", [_VP, _VP, _VP, _I, _I],
              "tpu_ecc/ops/pallas_kernels.py:379"),
-    "pdouble": ("pdouble.cu", ("pdouble",), "pdouble_launch", [_VP, _VP, _I],
+    "pdouble": ("pdouble.cu", (), "pdouble_launch", [_VP, _VP, _I],
                 "tpu_ecc/ops/pallas_kernels.py:403"),
     "padd_chain": ("padd_chain.cu", (), "padd_chain_launch",
                    [_VP, _VP, _VP, _I, _I],
@@ -141,8 +154,8 @@ KERNELS = {
                      [_VP, _VP, _VP, _VP, _I, _I, _I], "tools/profile_ladder.py:72"),
 }
 
-FE32_KERNELS = ("padd_chain", "segscan", "ladder", "genmul", "bucket_reduce", "horner", "pow",
-                "fixup", "ladder_probe")
+FE32_KERNELS = ("padd", "pdouble", "padd_chain", "segscan", "ladder", "genmul", "bucket_reduce",
+                "horner", "pow", "fixup", "ladder_probe")
 """The kernels on the 32-bit field layer."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
@@ -220,17 +233,29 @@ def _header(name: str, target) -> str:
     return kfe.kernel_header(target, functions(name, target))[0]
 
 
+def _flags(src_file: str, target) -> tuple:
+    """nvcc's flags for a source and target: NVCC_FLAGS, and
+    DENSE_CHAIN_PTXAS for padd_chain.cu on a curve whose base field loads
+    by the Montgomery load."""
+    dense = (src_file == "padd_chain.cu" and isinstance(target, CurveSpec)
+             and kfe.fe32_field_constants(target.field)["MLOAD"])
+    return NVCC_FLAGS + (("-Xptxas", DENSE_CHAIN_PTXAS) if dense else ())
+
+
 def _target(name: str, target):
-    """(library path, build directory, generated header) for one kernel."""
+    """(library path, build directory, generated header) for one kernel,
+    named by its source: kernels of one source with one header share a
+    library."""
     src_file = KERNELS[name][0]
+    stem = os.path.splitext(src_file)[0]
     header = _header(name, target)
     texts = []
     for f in [src_file] + includes(src_file):
         with open(os.path.join(CSRC, f)) as fh:
             texts.append(fh.read())
-    key = hashlib.sha256("\0".join((header, *texts) + NVCC_FLAGS).encode())
-    d = os.path.join(BUILD_DIR, f"{target_name(target)}-{name}-{key.hexdigest()[:16]}")
-    return os.path.join(d, f"lib{name}.so"), d, header
+    key = hashlib.sha256("\0".join((header, *texts) + _flags(src_file, target)).encode())
+    d = os.path.join(BUILD_DIR, f"{target_name(target)}-{stem}-{key.hexdigest()[:16]}")
+    return os.path.join(d, f"lib{stem}.so"), d, header
 
 
 def build(curve: CurveSpec, names=None) -> dict:
@@ -241,27 +266,33 @@ def build(curve: CurveSpec, names=None) -> dict:
     return {name: rep for (_, name), rep in reports.items()}
 
 
-def build_targets(targets) -> dict:
+def build_targets(targets, meanwhile=None, nice: int = 0) -> dict:
     """Build the kernels of targets = [(target, name), ...] (a target is a
     curve, a field spec or None, see `functions`), one nvcc process per
-    (target, kernel), all started together, and bind them. Returns
+    (target, kernel), all started together at niceness `nice`, calls
+    meanwhile() (where given) while they run, and binds them. Returns
     {(target name, kernel name): nvcc's report} for the kernels built now
     (ptxas registers, spills); a library already built from the same
-    source, header and flags is reused."""
-    jobs = {}
+    source, header and flags is reused, and one that two kernels share
+    (`padd`, `padd_chain`) is built once, reported under the first."""
+    jobs, sos = {}, set()
     for target, name in targets:
         so, d, header = _target(name, target)
-        if os.path.exists(so) or (target_name(target), name) in jobs:
+        if os.path.exists(so) or so in sos:
             continue
+        sos.add(so)
+        src_file = KERNELS[name][0]
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
+        with open(os.path.join(d, f"kfe_{os.path.splitext(src_file)[0]}.cuh"), "w") as fh:
             fh.write(header)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", d, "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, KERNELS[name][0])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        cmd = [_nvcc(), *_flags(src_file, target), "-I", d, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, src_file)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, preexec_fn=(lambda: os.nice(nice)) if nice else None)
         jobs[target_name(target), name] = (so, tmp, proc)
+    if meanwhile is not None:
+        meanwhile()
     reports, failed = {}, []
     for key, (so, tmp, proc) in jobs.items():
         reports[key], _ = proc.communicate()
@@ -340,17 +371,20 @@ def _curve_of(spec: F.FieldSpec):
 # ---------------------------------------------------------------------------
 
 def padd(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b for steady point limbs a, b [3, n, B] -> steady [3, n, B]."""
+    """a + b for steady point limbs a, b [3, n, B] -> steady [3, n, B]. The
+    kernel, padd_chain's at one add (csrc/padd_chain.cu, on the 32-bit
+    layer), returns each coordinate canonical: equal mod p to the twin's."""
     if a.device.type == "cpu":
         return padd_plain(curve, a, b)
     B = a.shape[-1]
     shape = (3, curve.field.n_limbs, B)
     _check(a, shape, "padd a")
     _check(b, shape, "padd b")
+    _check_words(a, "padd a")
     a32, b32 = _u32(a), _u32(b)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     _launch("padd", curve, a.device, a32.data_ptr(), b32.data_ptr(),
-            out.data_ptr(), B)
+            out.data_ptr(), B, 1)
     return _from_u32(out)
 
 
@@ -359,11 +393,14 @@ def padd_plain(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 def pdouble(curve: CurveSpec, a: torch.Tensor) -> torch.Tensor:
-    """2a for steady point limbs a [3, n, B] -> steady [3, n, B]."""
+    """2a for steady point limbs a [3, n, B] -> steady [3, n, B]. The
+    kernel (on the 32-bit layer) returns each coordinate canonical: equal
+    mod p to the twin's."""
     if a.device.type == "cpu":
         return pdouble_plain(curve, a)
     B = a.shape[-1]
     _check(a, (3, curve.field.n_limbs, B), "pdouble a")
+    _check_words(a, "pdouble a")
     a32 = _u32(a)
     out = torch.empty(a32.shape, dtype=torch.int32, device=a.device)
     _launch("pdouble", curve, a.device, a32.data_ptr(), out.data_ptr(), B)
@@ -443,17 +480,13 @@ def fpow(spec: F.FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     and a zero digit keeps it). The kernel (on the 32-bit layer, either of
     the curve's fields, the table x..x^15 in shared memory) returns
     canonical limbs: the same element as the twin's, equal mod p. The
-    kernel is built for both fields of the curve, on the layer's 8 words:
-    raises NotImplementedError for a curve whose fields it cannot take
-    (`kfe.fe32_fits`: P-192, P-224, P-384, P-521 and the Brainpool
-    curves)."""
+    kernel is built for both fields of the curve, at the curve's word
+    count: every registered curve's two fields fit the layer
+    (`kfe.fe32_fits`), the Brainpool r1 curves' too, since `pow` runs no
+    point formula."""
     if x.device.type == "cpu":
         return fpow_plain(spec, x, e)
     curve, field = _curve_of(spec)
-    for f in (curve.field, curve.scalar):
-        why = kfe.fe32_fits(f)
-        if why:
-            raise NotImplementedError(f"pow on the card: {why}")
     n = spec.n_limbs
     x2 = x.reshape(n, -1)
     B = x2.shape[1]
@@ -485,11 +518,12 @@ def fpow_plain(spec: F.FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
 # ladder
 # ---------------------------------------------------------------------------
 
-def ladder_lanes(T: int) -> int:
-    """Lanes a block of the `ladder` kernel takes for T bases: at most
-    LADDER_LANES, so that the lanes' tables (9 points of 3 * 8 words a base,
-    864 B) fit the block's shared memory. Raises where one lane's do not."""
-    per_lane = T * TBL * 3 * kfe.FE32_N * 4
+def ladder_lanes(T: int, curve: CurveSpec) -> int:
+    """Lanes a block of the `ladder` kernel takes for T bases of `curve`:
+    at most LADDER_LANES, so that the lanes' tables (9 points of 3N words a
+    base: 864 B at the 256-bit curves' N = 8, 3672 B at P-521's 17) fit the
+    block's shared memory. Raises where one lane's do not."""
+    per_lane = T * TBL * 3 * kfe.fe32_words(curve.field) * 4
     lanes = min(LADDER_LANES, SMEM_BLOCK // per_lane)
     if lanes < 1:
         raise ValueError(f"ladder: the tables of T = {T} bases take {per_lane} B a lane, "
@@ -514,7 +548,7 @@ def ladder(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
     if bases.device.type == "cpu":
         return ladder_plain(curve, bases, mag, neg, glv)
     T, B = bases.shape[0], bases.shape[-1]
-    lanes = ladder_lanes(T)
+    lanes = ladder_lanes(T, curve)
     nw = mag.shape[0]
     H = 2 * T if glv else T
     n = curve.field.n_limbs
@@ -692,8 +726,8 @@ def fixup(curve: CurveSpec, t_l: torch.Tensor, last_key: torch.Tensor,
     _check_words(t_l, "fixup t_l")   # the scratch is smaller
     t32, lk32, fk32, ld32 = _u32(t_l), _u32(last_key), _u32(first_key), _u32(lead)
     out = torch.empty((3, n, *keys), dtype=torch.int32, device=t_l.device)
-    buf = torch.empty((2, 3 * kfe.FE32_N, last_key.numel()), dtype=torch.int32,
-                      device=t_l.device)
+    buf = torch.empty((2, 3 * kfe.fe32_words(curve.field), last_key.numel()),
+                      dtype=torch.int32, device=t_l.device)
     _launch("fixup", curve, t_l.device, t32.data_ptr(), lk32.data_ptr(),
             fk32.data_ptr(), ld32.data_ptr(), out.data_ptr(), buf.data_ptr(), L,
             last_key.numel())
@@ -738,8 +772,8 @@ def bucket_reduce(curve: CurveSpec, buckets: torch.Tensor, drop0: bool) -> torch
     groups = b32[0, 0].numel() // nbuck
     out = torch.empty((3, n, *wins), dtype=torch.int32, device=buckets.device)
     _check_words(b32, "bucket_reduce buckets")   # the scratch is smaller
-    buf = torch.empty((2, 3 * kfe.FE32_N, groups * nbuck), dtype=torch.int32,
-                      device=buckets.device)
+    buf = torch.empty((2, 3 * kfe.fe32_words(curve.field), groups * nbuck),
+                      dtype=torch.int32, device=buckets.device)
     _launch("bucket_reduce", curve, buckets.device, b32.data_ptr(), out.data_ptr(),
             buf.data_ptr(), nbuck, groups, int(drop0))
     return out
@@ -997,8 +1031,11 @@ def ladder_probe_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
 def op_counts(target) -> dict:
     """The 32-bit integer instructions each generated function of `target`
     (a curve or a field spec) needs at least, by class, as the generator
-    counts them (kfe.INSTRUCTION_CLASSES)."""
-    names = tuple(kfe.function_table(target))
+    counts them (kfe.INSTRUCTION_CLASSES); for a curve with the generic a,
+    whose formulas the generator lacks, its two fields' functions alone."""
+    generic = not isinstance(target, F.FieldSpec) and target.strategy == "generic"
+    names = tuple(n for n in kfe.function_table(target)
+                  if not (generic and n in kfe.FE32_POINT_FNS))
     return kfe.kernel_header(target, names)[1]
 
 
@@ -1141,18 +1178,34 @@ def _segscan_bytes(pn: int, B: int, C: int, ends: int, signed: bool, **_) -> int
 def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
     """`work` for the 32-bit layer: its functions' counts (kfe.fe32_counts)
     over the call. A row converts on load (3 coordinates) and on store."""
-    c = kfe.fe32_counts(curve)
     pn = 3 * curve.field.n_limbs
 
     def total(*terms) -> dict:
         return {k: sum(m * cnt[k] for m, cnt in terms) for k in kfe.FE32_CLASSES}
 
+    if name == "pow":
+        # per lane: the load of x, 14 multiplies for the table and one a
+        # nonzero digit, 4 squarings a digit, the store; in the field's count
+        spec = (curve.field, curve.scalar)[kw["field"]]
+        f = kfe.fe32_counts(spec)
+        digits = exponent_digits(kw["e"])
+        muls = 14 + sum(1 for d in digits if d)
+        ops = total((B, f["load"]), (muls * B, f["mul"]), (4 * len(digits) * B, f["sqr"]),
+                    (B, f["store"]))
+        return ops, 2 * spec.n_limbs * 4 * B + 4 * len(digits)
+    c = kfe.fe32_counts(curve)      # pow needs the fields alone; the rest the curve
+    if name == "padd":
+        ops = total((B, c["padd"]), (6 * B, c["load"]), (3 * B, c["store"]))
+        return ops, 3 * pn * 4 * B
+    if name == "pdouble":
+        ops = total((B, c["pdouble"]), (3 * B, c["load"]), (3 * B, c["store"]))
+        return ops, 2 * pn * 4 * B
     if name == "padd_chain":
         ops = total((kw["repeat"] * B, c["padd"]), (6 * B, c["load"]), (3 * B, c["store"]))
         return ops, 3 * pn * 4 * B
     if name == "segscan":
         C, signed = kw["C"], kw["signed"]
-        n = kfe.FE32_N
+        n = kfe.fe32_words(curve.field)
         # per row: the load, and (signed) the negation and its select of n
         # words; an add per repeated key; the stores of the run ends, and
         # of tail and lead (one leading run a lane)
@@ -1195,16 +1248,6 @@ def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
         ops = total((nw * w, c["pdouble"]), (nw, c["padd"]), (3 * nw, c["load"]),
                     (3, c["store"]))
         return ops, (nw + 1) * pn * 4
-    if name == "pow":
-        # per lane: the load of x, 14 multiplies for the table and one a
-        # nonzero digit, 4 squarings a digit, the store; in the field's count
-        spec = (curve.field, curve.scalar)[kw["field"]]
-        f = kfe.fe32_counts(spec)
-        digits = exponent_digits(kw["e"])
-        muls = 14 + sum(1 for d in digits if d)
-        ops = total((B, f["load"]), (muls * B, f["mul"]), (4 * len(digits) * B, f["sqr"]),
-                    (B, f["store"]))
-        return ops, 2 * spec.n_limbs * 4 * B + 4 * len(digits)
     if name == "fixup":
         # the first step loads every lane's point (3 rows; the partners'
         # loads of the lanes that add there are left out of this least

@@ -965,9 +965,6 @@ def kernel_header(target, names) -> tuple[str, dict]:
 # constants and its instruction count
 # ---------------------------------------------------------------------------
 
-FE32_N = 8
-"""Words of 32 bits per element in the builds of the 32-bit layer."""
-
 FE32_CLASSES = ("wide",) + INSTRUCTION_CLASSES
 """The 32-bit layer's instruction classes: `wide` is IMAD.WIDE.U32 (the
 32 x 32 -> 64 multiply-add, on the FMA pipe), the others as
@@ -978,50 +975,102 @@ def _words(v: int, n: int) -> list:
     return [(v >> (32 * i)) & _M32 for i in range(n)]
 
 
-@functools.lru_cache(maxsize=None)
-def fe32_fits(spec: FieldSpec, n_words: int = FE32_N) -> str:
-    """Why the 32-bit layer at N words cannot take the field `spec`, or ""
-    where it can: the layer needs 2^(32N-1) < p < 2^(32N), a loaded 13-bit
-    row's top word must fold into N words in reduce_top, and a solinas
-    field's F = 2^(32N) mod p must fold twice within N words (the carry
-    analysis of csrc/fe32.cuh)."""
-    p, N = spec.p, n_words
+def fe32_words(spec: FieldSpec) -> int:
+    """The 32-bit layer's word count for the field `spec`: N = ceil(bits(p)
+    / 32), the curve's own (a curve's two fields have the same)."""
+    return -(-spec.p.bit_length() // 32)
+
+
+def _fold_bit(spec: FieldSpec, N: int) -> int:
+    """C::KB: p's bit length for a solinas field below 2^(32N-1), whose
+    values fold at p's top bit (csrc/fe32.cuh), else 0."""
+    p = spec.p
+    return p.bit_length() if spec.kind != "mont" and p < 1 << (32 * N - 1) else 0
+
+
+def fe32_small_fits(spec: FieldSpec, k: int, n_words: int | None = None) -> bool:
+    """Whether reduce_top takes t + h 2^(32N) for every h < k (mul_small by
+    k, or a row load whose top word is below k): (k - 1) F < 2^(32N), k F
+    <= 2^(32N), and a value below 2^(32N) reduces below 2p, because 2^(32N)
+    < 2p or the field folds at its top bit (the carry analysis of
+    csrc/fe32.cuh)."""
+    N = fe32_words(spec) if n_words is None else n_words
     W = 1 << (32 * N)
-    if not W // 2 < p < W:
-        return f"{spec.name}: the 32-bit layer takes 2^{32 * N - 1} < p < 2^{32 * N}"
+    F = W % spec.p
+    below = W < 2 * spec.p or _fold_bit(spec, N) != 0
+    return below and (k - 1) * F < W and k * F <= W
+
+
+def _rows_top(spec: FieldSpec, N: int) -> int:
+    """The largest top word h of a 13-bit row at N words: the row's NL LB
+    bits above the low 32N."""
+    return ((1 << (spec.n_limbs * spec.limb_bits)) - 1) >> (32 * N)
+
+
+@functools.lru_cache(maxsize=None)
+def fe32_fits(spec: FieldSpec, n_words: int | None = None) -> str:
+    """Why the 32-bit layer at N words (default the field's own,
+    `fe32_words`) cannot take the field `spec`, or "" where it can: the
+    layer needs an odd p with 2^(32N-32) < p < 2^(32N) and a 13-bit row
+    whose bits above the low 32N fit one word; a solinas field loads its
+    rows through reduce_top, needs p = 2^k - 1 where p < 2^(32N-1) (the
+    fold at p's top bit) and otherwise an F = 2^(32N) mod p that folds
+    twice within N words; a Montgomery field takes any such p (CIOS, and
+    the load mont(lo, to32) + mont(to32h, h) where reduce_top cannot take
+    the row). The carry analysis of csrc/fe32.cuh."""
+    p = spec.p
+    N = fe32_words(spec) if n_words is None else n_words
+    W = 1 << (32 * N)
+    if not (p % 2 and W >> 32 < p < W):
+        return (f"{spec.name}: the 32-bit layer at N = {N} takes an odd "
+                f"2^{32 * N - 32} < p < 2^{32 * N}")
+    NL, LB = spec.n_limbs, spec.limb_bits
+    if NL * LB > 32 * (N + 1):
+        return (f"{spec.name}: a 13-bit row's {NL * LB} bits exceed the {32 * (N + 1)} "
+                "of N + 1 words")
+    if spec.kind == "mont":
+        return ""
     F = W % p
     FW = -(-F.bit_length() // 32)
-    NL, LB = spec.n_limbs, spec.limb_bits
-    h_rows = ((1 << (NL * LB)) - 1) >> (32 * N)    # the rows' top word
-    if NL * LB > 32 * (N + 1) or (h_rows + 1) * F > W:
+    KB = _fold_bit(spec, N)
+    if KB and (p != (1 << KB) - 1 or KB % 32 == 0 or 2 ** (32 * N - KB) > p - 1):
+        return (f"{spec.name}: a solinas p below 2^{32 * N - 1} must be 2^k - 1 (k not a "
+                "multiple of 32) for the 32-bit layer's fold at p's top bit")
+    if not fe32_small_fits(spec, _rows_top(spec, N) + 1, N):
         return f"{spec.name}: a loaded 13-bit row overflows the 32-bit layer's reduce_top"
-    if spec.kind != "mont" and not (F * (F + 1) <= W and 2 * FW - 1 <= N):
+    if not KB and not (F * (F + 1) <= W and 2 * FW - 1 <= N):
         return f"{spec.name}: 2^{32 * N} mod p is too wide for the 32-bit layer's solinas fold"
     return ""
 
 
-def fe32_field_constants(spec: FieldSpec, n_words: int = FE32_N) -> dict:
+def fe32_field_constants(spec: FieldSpec) -> dict:
     """The 32-bit layer's constants of one field, solinas or Montgomery in
-    the 13-bit plan (N words): p, F = 2^(32N) mod p in FW words, the
-    domain (Montgomery with R32 = 2^(32N) where the 13-bit plan is
-    Montgomery: N0 = -p^-1 mod 2^32 and the maps to and from the plan's
-    R13), one in the domain, and the 13-bit rows' limb plan (NL limbs of
-    LB bits). Raises NotImplementedError for a field the layer cannot take
-    (`fe32_fits`)."""
-    why = fe32_fits(spec, n_words)
+    the 13-bit plan, at the field's word count N (`fe32_words`):
+    p, F = 2^(32N) mod p in FW words, the fold bit KB (p = 2^KB - 1 for a
+    solinas p below 2^(32N-1), else 0), the domain (Montgomery with R32 =
+    2^(32N) where the 13-bit plan is Montgomery: N0 = -p^-1 mod 2^32 and
+    the maps to and from the plan's R13), the load form (MLOAD: mont(lo,
+    to32) + mont(to32h, h) for a Montgomery field whose rows reduce_top
+    cannot take), one in the domain, and the 13-bit rows' limb plan (NL
+    limbs of LB bits). Raises NotImplementedError for a field the layer
+    cannot take (`fe32_fits`)."""
+    why = fe32_fits(spec)
     if why:
         raise NotImplementedError(why)
-    p, N = spec.p, n_words
+    p, N = spec.p, fe32_words(spec)
     W = 1 << (32 * N)
     mont = spec.kind == "mont"
     F = W % p
     FW = -(-F.bit_length() // 32)
+    mload = mont and not fe32_small_fits(spec, _rows_top(spec, N) + 1, N)
+    # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
+    to32 = F * F * pow(spec.W, -1, p) % p if mont else 0
     return {
-        "N": N, "NL": spec.n_limbs, "LB": spec.limb_bits, "FW": FW, "MONT": mont,
+        "N": N, "NL": spec.n_limbs, "LB": spec.limb_bits, "FW": FW, "KB": _fold_bit(spec, N),
+        "MONT": mont, "MLOAD": mload,
         "N0": (-pow(p, -1, 1 << 32)) % (1 << 32),
         "p": _words(p, N), "f": _words(F, FW), "one": _words(_fe32_enc(spec, N, 1), N),
-        # mont(v, R32^2 R13^-1) = v R13^-1 R32; mont(x, R13) = x R32^-1 R13
-        "to32": _words(F * F * pow(spec.W, -1, p) % p if mont else 0, N),
+        "to32": _words(to32, N), "to32h": _words(F * to32 % p if mload else 0, N),
         "to13": _words(spec.W % p if mont else 0, N),
     }
 
@@ -1031,21 +1080,24 @@ def _fe32_enc(spec: FieldSpec, N: int, v: int) -> int:
     return v * (1 << (32 * N)) % spec.p if spec.kind == "mont" else v % spec.p
 
 
-def fe32_constants(curve, n_words: int = FE32_N) -> dict:
-    """The constants of the 32-bit layer for `curve` (N words): its base
-    field's (`fe32_field_constants`) and the curve's own, with the carry
-    analysis of csrc/fe32.cuh checked for them: the formula's b multiplier
-    in the domain (BSMALL where it fits mul_small), and the GLV beta in the
-    domain where the curve has an endomorphism (HAS_BETA)."""
+def fe32_constants(curve) -> dict:
+    """The constants of the 32-bit layer for `curve`, at its word count: its
+    base field's (`fe32_field_constants`) and the curve's own, with the
+    carry analysis of csrc/fe32.cuh checked for them: the formula's b
+    multiplier in the domain (BSMALL where it fits mul_small), and the GLV
+    beta in the domain where the curve has an endomorphism (HAS_BETA).
+    Raises NotImplementedError for a curve whose formulas the layer lacks
+    (the generic a of bp256r1 and bp384r1: only a = 0 and a = -3 are
+    written) or whose field it cannot take."""
     if curve.strategy not in ("a0", "a_minus3"):
         raise NotImplementedError(
-            f"{curve.name}: the {curve.strategy} formulas are not ported to the 32-bit layer")
+            f"{curve.name}: the {curve.strategy} formulas (a = {curve.a:#x}) are not written "
+            "on the 32-bit layer, which has a = 0 and a = -3")
     f = curve.field
-    k = fe32_field_constants(f, n_words)
-    N, p, W = k["N"], f.p, 1 << (32 * k["N"])
+    k = fe32_field_constants(f)
+    N, p = k["N"], f.p
     b_plain = (3 * curve.b if curve.strategy == "a0" else curve.b) % p
-    bsmall = b_plain if b_plain < (1 << 16) else 0
-    assert bsmall * (W % p) <= W, "mul_small by the b multiplier"
+    bsmall = b_plain if b_plain < (1 << 16) and fe32_small_fits(f, b_plain, N) else 0
     return {
         **k, "A0": curve.strategy == "a0", "BSMALL": bsmall,
         "bmul": _words(_fe32_enc(f, N, b_plain), N), "HAS_BETA": bool(curve.glv),
@@ -1066,13 +1118,14 @@ def _traits(name: str, k: dict) -> str:
     def has(names):
         return [n for n in names if n in k]
 
-    ints = "".join(f"  static constexpr int {n} = {k[n]};\n" for n in ("N", "NL", "LB", "FW"))
+    ints = "".join(f"  static constexpr int {n} = {k[n]};\n"
+                   for n in ("N", "NL", "LB", "FW", "KB"))
     flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n"
-                    for n in has(("MONT", "A0", "HAS_BETA")))
+                    for n in has(("MONT", "MLOAD", "A0", "HAS_BETA")))
     words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n"
                     for n in has(("N0", "BSMALL")))
     funcs = "".join(_word_function(n, k[n])
-                    for n in has(("p", "f", "one", "bmul", "beta", "to32", "to13")))
+                    for n in has(("p", "f", "one", "bmul", "beta", "to32", "to32h", "to13")))
     return f"struct {name} {{\n{ints}{flags}{words}{funcs}}};\n"
 
 
@@ -1083,7 +1136,9 @@ def fe32_header(curve, fields_only: bool = False) -> str:
     field, `fe32_field_constants`). With `fields_only` (`pow`'s header,
     which runs no point formula) `Curve32` holds the base field's
     constants alone, so that it needs no more of the curve than its two
-    fields."""
+    fields. Both classes are at the curve's word count: its two fields
+    have the same (`fe32_words`)."""
+    assert fe32_words(curve.field) == fe32_words(curve.scalar), curve.name
     base = fe32_field_constants(curve.field) if fields_only else fe32_constants(curve)
     return ("// Generated by tpu_ecc_torch/ops/kfe.py (fe32_header). Do not edit.\n"
             f"// The 32-bit field layer's constants for {curve.name}.\n"
@@ -1182,10 +1237,17 @@ def fe32_counts(target) -> dict:
             t.mac(w, addends=2)
         t(other=N - FW)
 
+    KW = k["KB"] // 32
+
+    def reduce_below(t):
+        if k["KB"]:                         # the top fold: a funnel shift a word of
+            t(other=2 * N - KW, alu=1)      # v >> KB, the mask, the add
+        reduce_once(t)
+
     def reduce_top(t):
         fold(t)
         fold(t)
-        reduce_once(t)
+        reduce_below(t)
 
     def mul_wide(t):
         for i in range(N):
@@ -1228,7 +1290,17 @@ def fe32_counts(target) -> dict:
         for _ in range(N):
             t.mac(None, addends=2)
 
-    reduce = reduce_mont if k["MONT"] else reduce_solinas
+    def reduce_mersenne(t):
+        t(other=2 * N, alu=1)               # T >> KB a funnel shift a word, the add
+        reduce_below(t)
+
+    def mont_word(t):
+        # one product row (N products), then CIOS's N reduction rows
+        for j in range(N):
+            t.mac(None, addends=int(j > 0))
+        reduce_mont(t)
+
+    reduce = reduce_mont if k["MONT"] else reduce_mersenne if k["KB"] else reduce_solinas
 
     def mul(t):
         mul_wide(t)
@@ -1257,6 +1329,12 @@ def fe32_counts(target) -> dict:
             if off + LB > 32:
                 t(other=1)
                 filled.add(w + 1)
+        if k["MLOAD"]:                      # mont(lo, to32) + mont(to32h, h)
+            mul_mont(t)
+            if NL * LB > 32 * N:
+                mont_word(t)
+                add(t)
+            return
         reduce_top(t)
         if k["MONT"]:
             mul_mont(t)

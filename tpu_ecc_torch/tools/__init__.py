@@ -6,12 +6,14 @@ runs as
 
 on the card unless `--device cpu` is given (the kernels' plain twins; a CPU
 time says nothing of the card). Each prints its measurements and its `main`
-returns them. `bench_imad_wide`, `bench_ladder_forms` and `bench_blocks`,
-the port's own, run on the card only: the first measures the IMAD.WIDE.U32
-rate that the 32-bit layer's bound assumes, the second the ladder kernel's
-launch forms (csrc/ladder.cu builds each field's in the form it found
-fastest), the third the block sizes of bucket_reduce, pow, fixup and
-ladder_probe, and dma_gather's warps a block and rows a warp.
+returns them. `bench_imad_wide`, `bench_ladder_forms`, `bench_blocks` and
+`bench_point_ops`, the port's own, run on the card only: the first
+measures the IMAD.WIDE.U32 rate that the 32-bit layer's bound assumes, the
+second the ladder kernel's launch forms (csrc/ladder.cu builds each
+field's in the form it found fastest), the third the block sizes of
+bucket_reduce, pow, fixup and ladder_probe, dma_gather's warps a block and
+rows a warp, and the point-add chain's ptxas level, the fourth the device
+time of padd and pdouble against another checkout's.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Block sizes of the kernels that take theirs from a macro: registers,
-spills and time on the card.
+"""Block sizes of the kernels that take theirs from a macro, and the ptxas
+level of the point-add chain: registers, spills and time on the card.
 
 csrc/bucket_reduce.cu, csrc/pow.cu, csrc/fixup.cu and csrc/ladder_probe.cu
 take their threads a block from BUCKET_THREADS, POW_THREADS, FIXUP_THREADS
@@ -7,12 +7,14 @@ and PROBE_THREADS, which their __launch_bounds__ follow (and pow's and
 ladder_probe's table stride); csrc/dma_gather.cu its warps a block and the
 most rows a warp gathers from GATHER_WARPS and GATHER_ROWS. This builds
 each named kernel in each of its forms (`forms`: 32, 64 and 128 threads;
-for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows; nvcc
--D<macro>=k, one process each, all started together), prints ptxas's
+for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows, nvcc
+-D<macro>=k; for padd_chain, whose source is also `padd`'s, ptxas -O3
+and -O1; one process each, all started together), prints ptxas's
 registers and spills for each, holds each against its plain twin (by
 canonical values mod p; dma_gather exactly) at the main path's or the
 tool's shapes, and times them in turns through the kernel's wrapper
-(ROUNDS rounds, the order reversed in every other):
+(ROUNDS rounds, the order reversed in every other), by CUDA events and
+by torch.profiler's device time of the kernel's launches:
 
     bucket_reduce  secp256k1, nbuck = 8192, 8 and 3 windows
     pow            secp256k1 and P-256, each field, e = p - 2, B = 4096
@@ -22,6 +24,9 @@ tool's shapes, and times them in turns through the kernel's wrapper
                    (profile_ladder's inputs)
     dma_gather     N = 2^20, W = 128, M = 2^18 (bench_gather_probe's
                    payload), Cb = 4096 at depth 8, 2 and 16, Cb = 256 at 8
+    padd_chain     the five N = 8 curves (secp256k1, P-256, bp256t1, SM2,
+                   bign256), B = 8192, repeat 16 (the headline) and repeat
+                   1 (the launch of padd_points)
 
 For fixup it then times, at the size the source builds by default, the C
 entry alone (inputs converted and the scratch allocated once) against the
@@ -30,7 +35,7 @@ events around back-to-back calls and by torch.profiler's device time of
 the calls' launches.
 
     python3 -m tpu_ecc_torch.tools.bench_blocks [bucket_reduce] [pow] [fixup]
-        [ladder_probe] [dma_gather]
+        [ladder_probe] [dma_gather] [padd_chain]
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIX
           "ladder_probe": "PROBE_THREADS"}
 SIZES = (32, 64, 128)
 GATHER_WARPS, GATHER_ROWS = (4, 8, 16), (32, 64, 128)
-SWEPT = (*MACROS, "dma_gather")
+PTXAS_LEVELS = ("-O3", "-O1")
+SWEPT = (*MACROS, "dma_gather", "padd_chain")
+CHAIN_B = 8192
 NBUCK, WINDOWS, LANES, ROWS = 8192, (8, 3), 8192, 128
 POW_B, LADDER_B = 4096, 4096
 GATHER_N, GATHER_W, GATHER_M = 1 << 20, 128, 1 << 18
@@ -65,11 +72,13 @@ ROUNDS, REPS = 8, 5          # rounds in turns; calls a timing
 
 
 def forms(name: str) -> list:
-    """(label, {macro: value}) of each build of kernel `name`."""
+    """(label, nvcc flags) of each build of kernel `name`."""
     if name == "dma_gather":
-        return [(f"{w} warps x {r} rows", {"GATHER_WARPS": w, "GATHER_ROWS": r})
+        return [(f"{w} warps x {r} rows", (f"-DGATHER_WARPS={w}", f"-DGATHER_ROWS={r}"))
                 for w in GATHER_WARPS for r in GATHER_ROWS]
-    return [(f"{k} threads", {MACROS[name]: k}) for k in SIZES]
+    if name == "padd_chain":
+        return [(f"ptxas {lv}", ("-Xptxas", lv)) for lv in PTXAS_LEVELS]
+    return [(f"{k} threads", (f"-D{MACROS[name]}={k}",)) for k in SIZES]
 
 
 def build(targets) -> dict:
@@ -86,12 +95,12 @@ def build(targets) -> dict:
                 texts.append(fh.read())
         header = K._header(name, curve)
         tname = K.target_name(curve)
-        for label, defs in forms(name):
-            flags = (*K.NVCC_FLAGS, *(f"-D{m}={v}" for m, v in defs.items()))
+        for label, extra in forms(name):
+            flags = (*K.NVCC_FLAGS, *extra)
             key = hashlib.sha256("\0".join((header, *texts) + flags).encode()).hexdigest()[:16]
             d = os.path.join(K.BUILD_DIR, f"{tname}-{name}-blocks-{key}")
             os.makedirs(d, exist_ok=True)
-            with open(os.path.join(d, f"kfe_{name}.cuh"), "w") as fh:
+            with open(os.path.join(d, f"kfe_{os.path.splitext(src_file)[0]}.cuh"), "w") as fh:
                 fh.write(header)
             so = os.path.join(d, f"lib{name}.so")
             cmd = [K._nvcc(), *flags, "-I", d, "-I", K.CSRC, "-o", so,
@@ -195,6 +204,13 @@ def cases(names, dev) -> list:
             out.append(("ladder_probe", k256, variant,
                         lambda v=variant: K.ladder_probe(k256, bases, mag, neg, v),
                         twins[key], k256.field))
+    if "padd_chain" in names:
+        for c in (k256, p256, get_curve("bp256t1"), get_curve("sm2"), get_curve("bign256")):
+            a, b = _points(c, CHAIN_B, dev, 1), _points(c, CHAIN_B, dev, 2)
+            for repeat in (16, 1):
+                out.append(("padd_chain", c, f"{c.name} repeat {repeat}",
+                            lambda c=c, a=a, b=b, r=repeat: K.padd_chain(c, a, b, r),
+                            _canonical(c.field, K.padd_chain_plain(c, a, b, repeat)), c.field))
     if "dma_gather" in names:
         pay = bench_gather_probe.device_payload(GATHER_N, GATHER_W, dev)
         idx = torch.from_numpy(np.random.default_rng(1).permutation(GATHER_N)
@@ -216,9 +232,10 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_ms(fn, reps: int) -> float:
+def _profiled_ms(fn, reps: int, kernel: str = "fixup") -> float:
     """Device ms a call of fn() by torch.profiler: the self device time of
-    the fixup kernels over `reps` calls."""
+    the launches of `kernel` (whose CUDA functions are named `<kernel>_...`)
+    over `reps` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -228,7 +245,7 @@ def _profiled_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     us = 0.0
     for e in prof.key_averages():
-        if "fixup_" in e.key:
+        if f"{kernel}_" in e.key:
             us += next((getattr(e, a) for a in ("self_device_time_total", "self_cuda_time_total")
                         if hasattr(e, a)), 0)
     return us / 1e3 / reps
@@ -246,7 +263,8 @@ def fixup_alone(so: str, dev) -> dict:
         t_l, lk, fk, lead = _fixup_inputs(k256, g, dev)
         n = k256.field.n_limbs
         res = torch.empty((3, n, g, LANES), dtype=torch.int32, device=dev)
-        buf = torch.empty((2, 3 * kfe.FE32_N, g * LANES), dtype=torch.int32, device=dev)
+        buf = torch.empty((2, 3 * kfe.fe32_words(k256.field), g * LANES), dtype=torch.int32,
+                          device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def alone():
@@ -275,9 +293,11 @@ def fixup_alone(so: str, dev) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Returns {kernel: {form label: {"ptxas": [...], "ms": {case label:
-    median ms}}}}, ms the median over the rounds of the mean of REPS
-    calls, and under "fixup_alone" the C entry against the wrapper."""
+    """Returns {kernel: {form label: {"ptxas": {target name: [...]}, "ms":
+    {case label: median ms}, "device_ms": {case label: median ms}}}}, ms the median over
+    the rounds of the mean of REPS calls by CUDA events, device_ms of the
+    profiler's device time of a call, and under "fixup_alone" the C entry
+    against the wrapper."""
     names = list(sys.argv[1:] if argv is None else argv) or list(SWEPT)
     if any(n not in SWEPT for n in names):
         raise SystemExit(f"bench_blocks: kernels are {list(SWEPT)}")
@@ -294,6 +314,7 @@ def main(argv=None) -> dict:
     for name, curve, label, run, want, spec in todo:
         tname, labels = K.target_name(curve), [f for f, _ in forms(name)]
         ms = {form: [] for form in labels}
+        dev_ms = {form: [] for form in labels}
         for form in labels:
             K._bound[name, tname] = entries[name, tname, form]
             got = run()
@@ -304,17 +325,23 @@ def main(argv=None) -> dict:
             for form in (labels if r % 2 == 0 else labels[::-1]):
                 K._bound[name, tname] = entries[name, tname, form]
                 ms[form].append(_events_ms(run, REPS))
+                dev_ms[form].append(_profiled_ms(run, REPS, name))
         row = result.setdefault(name, {})
         for form in labels:
             lines = ptxas_lines(built[name, tname, form][1])
-            row.setdefault(form, {"ptxas": lines, "ms": {}})["ms"][label] = float(
-                np.median(ms[form]))
-        print(f"  {name} [{label}]: each form equal to its twin; median ms "
-              + ", ".join(f"{f} {np.median(v):.4f}" for f, v in ms.items()), flush=True)
+            r = row.setdefault(form, {"ptxas": {}, "ms": {}, "device_ms": {}})
+            r["ptxas"][tname] = lines
+            r["ms"][label] = float(np.median(ms[form]))
+            r["device_ms"][label] = float(np.median(dev_ms[form]))
+        print(f"  {name} [{label}]: each form equal to its twin; median ms by events, "
+              "by the profiler's device time: "
+              + ", ".join(f"{f} {np.median(ms[f]):.4f}, {np.median(dev_ms[f]):.4f}"
+                          for f in labels), flush=True)
         del K._bound[name, tname]
     for name, row in result.items():
         for form, r in row.items():
-            print(f"  {name} at {form}: ptxas {' | '.join(r['ptxas'])}", flush=True)
+            for tname, lines in r["ptxas"].items():
+                print(f"  {name} {tname} at {form}: ptxas {' | '.join(lines)}", flush=True)
     if "fixup" in names:
         result["fixup_alone"] = fixup_alone(
             built["fixup", "secp256k1", f"{K.FIXUP_LANES} threads"][0], dev)
