@@ -14,13 +14,17 @@
    bp256r1 and bp384r1 (padd is padd_chain's library at one add: one build
    serves both); then the native signing code (g++). Prints the seconds it
    took and ptxas's registers and stack for each library. The kernels on
-   the 32-bit field layer at N = 8 words and dma_gather must show 0 bytes
-   of spill stores and loads (a build at N = 6, 7, 12 or 17 prints its
-   spill); for the secp256k1 and P-256 builds, and P-384's and P-521's
-   ladder and pow, the instructions of the loop bodies in the built SASS
-   (cuobjdump -sass; pow's for each field, ladder_probe's for each variant;
-   bucket_reduce's tree step and fixup's step, which have no loop, whole),
-   by class, print beside the count of kernels.work's "fe32" design. Then
+   the 32-bit field layer at N = 8 words (fmul_chain and mxu_chain, on
+   their bare fields' `Field32`, among them) and dma_gather must show 0
+   bytes of spill stores and loads (a build at N = 6, 7, 12 or 17 prints
+   its spill); for the secp256k1 and P-256 builds, the probes' and P-384's
+   and P-521's ladder and pow, the instructions of the loop bodies in the
+   built SASS (cuobjdump -sass; pow's for each field, ladder_probe's for
+   each variant; bucket_reduce's tree step and fixup's step, which have no
+   loop, whole; fmul_chain's multiply, mxu_chain's step), by class, print
+   beside the count of kernels.work's "fe32" design; mxu_chain's step must
+   hold a warpgroup MMA instruction (the GMMA family: its two constant
+   products on `wgmma`). Then
    it makes the inputs of the new curves' holds (step 10) and hands their
    twins to TWIN_WORKERS processes, which compute them on the CPU while
    steps 2-6 run.
@@ -95,8 +99,10 @@
    256 at depth 8; each with the GB/s of the rows read beside
    index_select's, which also writes them),
    fmul_chain on the three fields and mxu_chain on the two Montgomery ones
-   at B = 8192, ladder_probe's five variants at B = 4096 on 34 windows (on
-   the 32-bit layer: by canonical coordinates mod p).
+   at B = 8192 (on the 32-bit layer: by canonical values mod p; then the
+   two chains on the same inputs, CHAIN_PAIRS pairs in turns, by the
+   profiler's device ms a call), ladder_probe's five variants at B = 4096
+   on 34 windows (by canonical coordinates mod p).
    Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
    default sizes, each with the counts set to 0 just before and read just
    after, and prints what each probe answered.
@@ -228,8 +234,8 @@ def limb_diff(outs_k, outs_p) -> int:
 
 
 def field_diff(spec):
-    """pow's hold: the largest difference between the canonical limbs of
-    the kernel's element and the twin's."""
+    """The hold of pow, fmul_chain and mxu_chain: the largest difference
+    between the canonical limbs of the kernel's element and the twin's."""
     from tpu_ecc_torch.ops import fe as F
 
     def canon(t):
@@ -280,7 +286,10 @@ def ptxas_report(log: str) -> tuple:
 
 def sass_class(op: str) -> str:
     """The class of one SASS opcode, as kfe.FE32_CLASSES sorts the 32-bit
-    layer's instructions, plus local, memory and control."""
+    layer's instructions, plus gmma (a warpgroup MMA: HGMMA, IGMMA, ...),
+    local, memory and control."""
+    if "GMMA" in op:
+        return "gmma"
     if op.startswith("IMAD.WIDE"):
         return "wide"
     if op.startswith(("IMAD", "IMUL")):
@@ -640,20 +649,24 @@ def single_point_ops(curves, dev) -> dict:
 
 def chain_pairs(spec, a, b) -> None:
     """fmul_chain against mxu_chain on the same inputs, CHAIN_PAIRS pairs in
-    turns (each side first in every other pair), CHAIN_REPS launches each:
-    prints each side's median, range and wins in µs per chained multiply."""
+    turns (each side first in every other pair), CHAIN_REPS launches each
+    under torch.profiler: prints each side's median, range and wins in
+    device ms a call and µs per chained multiply."""
     from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.tools.devtime import device_ms
 
     fns = {"fmul_chain": lambda: K.fmul_chain(spec, a, b),
            "mxu_chain": lambda: K.mxu_chain(spec, a, b)}
-    us = {name: [] for name in fns}
+    ms = {name: [] for name in fns}
     for r in range(CHAIN_PAIRS):
         for name in sorted(fns, reverse=r % 2 == 1):
-            us[name].append(1e3 * _time_ms(fns[name], CHAIN_REPS) / K.CHAIN)
-    wins = sum(m < f for m, f in zip(us["mxu_chain"], us["fmul_chain"]))
-    print(f"  {spec.name}, us per chained mul over {CHAIN_PAIRS} pairs in turns: " + ", ".join(
-        f"{name} median {np.median(v):.4f} ({min(v):.4f}-{max(v):.4f})" for name, v in us.items())
-        + f"; mxu_chain faster in {wins} of {CHAIN_PAIRS}")
+            ms[name].append(device_ms(fns[name], CHAIN_REPS, name))
+    wins = sum(m < f for m, f in zip(ms["mxu_chain"], ms["fmul_chain"]))
+    print(f"  {spec.name}, device ms a call (us per chained mul) over {CHAIN_PAIRS} pairs in "
+          "turns, by the profiler: " + ", ".join(
+              f"{name} median {np.median(v):.4f} ({min(v):.4f}-{max(v):.4f}; "
+              f"{1e3 * np.median(v) / K.CHAIN:.4f} us)" for name, v in ms.items())
+          + f"; mxu_chain faster in {wins} of {CHAIN_PAIRS}")
 
 
 def probes(hold, fields, dev) -> dict:
@@ -690,10 +703,12 @@ def probes(hold, fields, dev) -> dict:
         a = F.fe_from_ints(spec, vals, dev).limbs
         b = F.fe_from_ints(spec, vals[::-1], dev).limbs
         hold("fmul_chain", f"{spec.name} B={PROBE_B}", lambda: K.fmul_chain(spec, a, b),
-             lambda: K.fmul_chain_plain(spec, a, b), CHAIN_REPS, c=spec)
+             lambda: K.fmul_chain_plain(spec, a, b), CHAIN_REPS, c=spec,
+             compare=field_diff(spec), block=K.FMUL_LANES)
         if spec.kind == "mont":
             hold("mxu_chain", f"{spec.name} B={PROBE_B}", lambda: K.mxu_chain(spec, a, b),
-                 lambda: K.mxu_chain_plain(spec, a, b), CHAIN_REPS, c=spec)
+                 lambda: K.mxu_chain_plain(spec, a, b), CHAIN_REPS, c=spec,
+                 compare=field_diff(spec))
             chain_pairs(spec, a, b)
     bases, mag, neg = profile_ladder.inputs(curve, LADDER_B, dev)
     twins = {}
@@ -1146,11 +1161,13 @@ def make_hold(rows: dict, clock_hz: float, default_curve):
                                  f"max abs limb difference {err}")
         ms = _time_ms(kern, reps)
         lib_ms = None if library is None else _time_ms(library, reps)
-        by_design = {}
+        by_design, split = {}, None
         for design in K.designs(name):
             ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B,
                                  design=design, **work)
             by_design[design] = (nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz))
+            if "int8" in ops:       # the last design with tensor-core work
+                split = (design, ops)
         bytes_s, ops_s = min(by_design.values(), key=max)
         bound_ms = 1e3 * max(bytes_s, ops_s)
         by = "bytes" if bytes_s > ops_s else "operations"
@@ -1159,9 +1176,10 @@ def make_hold(rows: dict, clock_hz: float, default_curve):
         if len(by_design) > 1:
             extra += " (bound by design: " + ", ".join(
                 f"{d} {1e3 * max(v):.4f} ms" for d, v in by_design.items()) + ")"
-        if "int8" in ops:
+        if split is not None:
+            design, ops = split
             cores = op_seconds({**ops, "int8": 0}, clock_hz)
-            extra += (f" (CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
+            extra += (f" ({design}: CUDA cores {1e3 * cores:.4f} ms, int8 tensor cores "
                       f"{1e3 * ops['int8'] / INT8_OPS_PER_S:.4f} ms)")
         same = "limb-equal" if compare is limb_diff else "equal mod p by canonical values"
         if block is not None:
@@ -1268,17 +1286,22 @@ def run(pool) -> int:
         c, name = names[0]
         with open(f"{so}.log") as fh:
             regs, stack = ptxas_report(fh.read())
-        words = None if c is None else kfe.fe32_words(c.field)
+        words = (None if c is None else
+                 kfe.fe32_words(c if name in K.FIELD_KERNELS else c.field))
         print(f"  {' and '.join(row_name(n, t) for t, n in names)}"
               f"{'' if words is None else f' (N = {words})'}: {regs}; {stack}")
         spills = not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
                                   for ln in stack.split(" | "))
         if spills and words in (None, 8):
             raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
-        if c is None or c in curves or (c.name, name) in SASS_WIDE:
+        if (c is None or c in curves or name in K.FIELD_KERNELS
+                or (c.name, name) in SASS_WIDE):
             for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
-                print(f"    SASS loop bodies of {fn} by class, largest first: "
-                      f"{sass_loop_counts(so, fn)}")
+                bodies = sass_loop_counts(so, fn)
+                print(f"    SASS loop bodies of {fn} by class, largest first: {bodies}")
+                if name == "mxu_chain" and not any(b.get("gmma") for b in bodies):
+                    raise AssertionError(f"{row_name(name, c)}: no warpgroup MMA (GMMA) in "
+                                         "its step's SASS")
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
@@ -1370,7 +1393,7 @@ def run(pool) -> int:
                 **probe_launches}
     kernels = []
     for (c, name), count in launches.items():
-        src, _, _, _, replaces = K.KERNELS[name]
+        src, _, _, replaces = K.KERNELS[name]
         kernels.append({"name": row_name(name, c), "route": "cuda",
                         "source": f"tpu_ecc_torch/csrc/{src}", "replaces": replaces,
                         "launches": count, **rows[row_name(name, c)]})

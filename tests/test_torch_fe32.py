@@ -582,12 +582,19 @@ def test_fixup_body_equals_plain(harness, cname):
 # ---------------------------------------------------------------------------
 
 def test_build_key_follows_the_included_headers(tmp_path, monkeypatch):
-    """The kernels on the layer include fe32.cuh and point32.cuh, and a
-    change to an included header changes the library's build key."""
+    """The kernels on the layer include fe32.cuh and point32.cuh (the
+    probes' chains, built per bare field, fe32.cuh and chain32.cuh), none
+    the 13-bit generated code (a field kernel's header is Field32's
+    constants), and a change to an included header changes the library's
+    build key."""
     for name in kernels.FE32_KERNELS:
-        assert kernels.includes(kernels.KERNELS[name][0]) == ["fe32.cuh", "point32.cuh"]
-        assert kernels.functions(name, get_curve("secp256k1")) == ()
-    assert kernels.includes("fmul_chain.cu") == []      # the 13-bit generated code
+        want = (["chain32.cuh", "fe32.cuh"] if name in kernels.FIELD_KERNELS
+                else ["fe32.cuh", "point32.cuh"])
+        assert kernels.includes(kernels.KERNELS[name][0]) == want
+    assert set(kernels.KERNELS) - set(kernels.FE32_KERNELS) == {"dma_gather"}
+    for name in kernels.FIELD_KERNELS:
+        header = kernels._target(name, get_curve("p256").field)[2]
+        assert "struct Field32" in header and "KFE_FP_N" not in header
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
     monkeypatch.setattr(kernels, "CSRC", str(src))
@@ -604,7 +611,7 @@ def test_padd_is_the_chain_library_at_one_add(cname):
     """`padd` launches padd_chain's library (one build a curve serves
     both), and its launches count as padd's."""
     curve = get_curve(cname)
-    assert kernels.KERNELS["padd"][:3] == kernels.KERNELS["padd_chain"][:3]
+    assert kernels.KERNELS["padd"][:2] == kernels.KERNELS["padd_chain"][:2]
     assert kernels._target("padd", curve) == kernels._target("padd_chain", curve)
     assert "padd" in kernels.launches and "padd_chain" in kernels.launches
 
@@ -652,11 +659,17 @@ def test_fe32_counts_and_constants(cname):
               "bucket_reduce": dict(groups=8), "horner": dict(nw=19, w=14),
               "pow": dict(field=1, e=n.p - 2), "fixup": dict(adds=300),
               "ladder_probe": dict(nw=34, variant="negate")}
-    assert set(shapes) == set(kernels.FE32_KERNELS)
+    assert set(shapes) == set(kernels.FE32_KERNELS) - set(kernels.FIELD_KERNELS)
     for name, kw in shapes.items():
         ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]
                for d in kernels.designs(name)}
         assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values()), name
+    for spec in (curve.field, curve.scalar):     # the probes' chains, on each field
+        for name in kernels.FIELD_KERNELS:
+            if name == "mxu_chain" and spec.kind != "mont":
+                continue
+            ops = {d: kernels.work(name, spec, 64, design=d)[0] for d in kernels.designs(name)}
+            assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values()), (name, spec)
     c = kfe.fe32_counts(curve)
     assert sum(c["pdouble"].values()) < sum(c["padd_mixed"].values()) < sum(c["padd"].values())
     assert c["mul_beta"] == c["mul"]
@@ -718,7 +731,8 @@ def test_pow_builds_for_the_fields_on_the_layer(cname):
     ("GENMUL_LANES", "genmul.cu", "THREADS"), ("LADDER_LANES", "ladder.cu", "MAX_LANES"),
     ("PROBE_LANES", "ladder_probe.cu", "PROBE_THREADS"),
     ("GATHER_WARPS", "dma_gather.cu", "GATHER_WARPS"),
-    ("GATHER_ROWS", "dma_gather.cu", "GATHER_ROWS")])
+    ("GATHER_ROWS", "dma_gather.cu", "GATHER_ROWS"),
+    ("FMUL_LANES", "fmul_chain.cu", "FMUL_THREADS"), ("MXU_LANES", "mxu_chain.cu", "MXU_LANES")])
 def test_block_sizes_follow_the_sources(const, src, macro):
     """The lanes a block that ops/kernels.py states (for its shared-memory
     sizing and the smoke's warp counts) are the sources' defaults."""

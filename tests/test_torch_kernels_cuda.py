@@ -1,11 +1,12 @@
 """tpu_ecc_torch's CUDA kernels against their plain PyTorch twins, on the card.
 
-Each kernel must equal its twin limb for limb (tolerance: exact), except
-the eleven on the 32-bit field layer (padd, pdouble, padd_chain, segscan,
-ladder, genmul, bucket_reduce, horner, pow, fixup, ladder_probe), which
-store canonical values: pow's element and each projective coordinate of the others must
-equal the twin's mod p (exact, by canonical limbs), segscan's `scanned` at its
-run-end rows, the only rows it writes. These tests
+dma_gather must equal its twin word for word (tolerance: exact); the
+thirteen kernels on the 32-bit field layer (padd, pdouble, padd_chain,
+segscan, ladder, genmul, bucket_reduce, horner, pow, fixup, ladder_probe,
+fmul_chain, mxu_chain) store canonical values: the element of pow,
+fmul_chain and mxu_chain and each projective coordinate of the others must
+equal the twin's mod p (exact, by canonical limbs), segscan's `scanned` at
+its run-end rows, the only rows it writes. These tests
 need an NVIDIA card and nvcc; they skip without them. Run them on the card
 with
 
@@ -515,7 +516,8 @@ def test_dma_gather_smallest_shape(dev, W):
     assert torch.equal(out, torch.zeros_like(pay[:1]))
 
 
-FIELDS = ["secp256k1.fp", "p256.fp", "k256mxu.fp"]
+FIELDS = ["secp256k1.fp", "p256.fp", "k256mxu.fp", "p384.fp"]
+MXU_FIELDS = FIELDS[1:]
 
 
 def _field(name):
@@ -524,30 +526,64 @@ def _field(name):
     return get_curve(name.split(".")[0]).field
 
 
-def _field_inputs(spec, dev, seed):
+def _field_inputs(spec, dev, seed, b=B):
+    """0, 1, p - 1 and random elements, and the same reversed."""
     rng = np.random.default_rng(seed)
-    vals = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(B)]
+    vals = [0, 1, spec.p - 1] + [int.from_bytes(rng.bytes(64), "big") % spec.p
+                                 for _ in range(b - 3)]
     return (F.fe_from_ints(spec, vals, dev).limbs,
             F.fe_from_ints(spec, vals[::-1], dev).limbs)
 
 
+def _same_field_mod_p(spec, out, want):
+    """The kernel's limbs canonical and equal to want's mod p."""
+    def canonical(limbs):
+        return F.fcanonical(F.fe_steady(spec, limbs.to(torch.int64))).limbs
+
+    assert torch.equal(canonical(out), out.to(torch.int64))
+    assert torch.equal(canonical(out), canonical(want))
+
+
 @pytest.mark.parametrize("name", FIELDS)
 def test_fmul_chain_matches_plain(dev, name):
+    """The 32-bit layer's multiply, 16 times, equal mod p to the twin (B =
+    300: the last block is ragged)."""
     spec = _field(name)
     a, b = _field_inputs(spec, dev, 7)
     out = kernels.fmul_chain(spec, a, b)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.fmul_chain_plain(spec, a, b))
+    _same_field_mod_p(spec, out, kernels.fmul_chain_plain(spec, a, b))
 
 
-@pytest.mark.parametrize("name", [f for f in FIELDS if f != "secp256k1.fp"])
-def test_mxu_chain_matches_plain(dev, name):
-    """B = 300: the last warp is ragged and still runs every mma."""
+@pytest.mark.parametrize("name", MXU_FIELDS)
+@pytest.mark.parametrize("lanes", [256, 300])
+def test_mxu_chain_matches_plain(dev, name, lanes):
+    """The byte-digit `wgmma` chain equal mod p to the twin: at 256 lanes
+    every warpgroup (kernels.MXU_LANES = 64 lanes) is full; at 300 the last
+    holds 44 lanes, and its other 20 run every product on zero digits."""
     spec = _field(name)
-    a, b = _field_inputs(spec, dev, 8)
+    a, b = _field_inputs(spec, dev, 8, lanes)
+    kernels.reset_launches()
     out = kernels.mxu_chain(spec, a, b)
     torch.cuda.synchronize()
-    assert torch.equal(out, kernels.mxu_chain_plain(spec, a, b))
+    assert kernels.launches["mxu_chain"] == 1
+    _same_field_mod_p(spec, out, kernels.mxu_chain_plain(spec, a, b))
+
+
+def test_mxu_chain_refuses_a_wide_field():
+    """A Montgomery field above 12 words (P-521's scalar field, 17) raises
+    ValueError before any build or launch, on a meta tensor; P-384's field
+    (12) passes that check and stops only at the CUDA one."""
+    wide = get_curve("p521").scalar
+    x = torch.empty((wide.n_limbs, 4), dtype=torch.int64, device="meta")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="at most N = 12"):
+        kernels.mxu_chain(wide, x, x)
+    p384 = _field("p384.fp")
+    x = torch.empty((p384.n_limbs, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mxu_chain(p384, x, x)
+    assert kernels.launches["mxu_chain"] == 0
 
 
 @pytest.mark.parametrize("variant", kernels.PROBE_VARIANTS)

@@ -132,7 +132,8 @@ def test_formulas_not_ported_raise():
 def test_ladder_functions_follow_the_endomorphism():
     """The ladder takes beta * x (its header, on the 32-bit layer, sets
     HAS_BETA and the constant beta) only for a curve with an endomorphism;
-    every kernel's header generates for P-256, which has none."""
+    every kernel's header generates for P-256, which has none (the probes'
+    chains for its bare field)."""
     k256, p256 = get_curve("secp256k1"), get_curve("p256")
     assert "ladder" in kernels.FE32_KERNELS
     assert "static constexpr bool HAS_BETA = true;" in kernels._header("ladder", k256)
@@ -140,12 +141,16 @@ def test_ladder_functions_follow_the_endomorphism():
     assert "fp_mul_beta" not in kfe.function_table(p256)
     assert "fp_mul_beta" in kfe.function_table(k256)
     for name in kernels.KERNELS:
-        if name in kernels.FE32_KERNELS:
+        if name in kernels.FIELD_KERNELS:
+            assert "struct Field32" in kernels._header(name, p256.field)
+        elif name in kernels.FE32_KERNELS:
             assert "struct Curve32" in kernels._header(name, p256)
-            continue
-        header, counts = kfe.kernel_header(p256, kernels.functions(name, p256))
-        assert "#define KFE_FP_N 21" in header and all(sum(c.values()) > 0
-                                                       for c in counts.values())
+        else:                           # dma_gather: no generated header
+            assert kernels._header(name, None) == ""
+    # the 13-bit generator (the "kfe" design of the bounds) still generates
+    header, counts = kfe.kernel_header(p256, ["fp_mul", "padd"])
+    assert "#define KFE_FP_N 21" in header and all(sum(c.values()) > 0
+                                                   for c in counts.values())
     assert kernels.work("ladder", p256, 8, T=2, nw=65, glv=False)[0]["imad"] > 0
 
 

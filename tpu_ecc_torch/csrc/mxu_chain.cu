@@ -1,194 +1,212 @@
 // mxu_chain: a <- a * b * R^-1 sixteen times per lane, each Montgomery
-// multiply separated into a data-by-data convolution on the CUDA cores and
-// the reduction's two constant products on the int8 tensor cores — the probe
-// of whether the tensor cores can take over the Montgomery reduction.
+// multiply split into a data-by-data product on the CUDA cores and the
+// reduction's two constant products on Hopper's warpgroup tensor-core
+// product (`wgmma`, u8 x u8 -> s32) — the probe of whether the tensor cores
+// can take over the Montgomery reduction of the 32-bit layer's multiply.
 //
 // Replaces tools/bench_mxu_mul.py bench_mxu_kernel_chain (:232-327), whose
 // Pallas body (:285-299) kept the chain in VMEM and ran the two constant
-// Toeplitz products on the TPU's matrix unit.
+// Toeplitz products on the TPU's matrix unit in 7 + 6-bit planes of 13-bit
+// limbs.
 //
-// Design: one warp per block, one thread per batch lane, the tool's order per
-// step: the n x n limb convolution (columns < n * 2^26 < 2^31), a carry of 2n
-// columns to the digits T, m = T[:n] * N' mod R (the product, then a carry of
-// n), u = m * p + T, a carry of 2n, and the top n digits are the result
-// (< 2p). The two constant products are banded Toeplitz matrices of 13-bit
-// limbs times the lanes' digits, split into int8 planes (low 7 and high 6
-// bits): four `mma.sync.m16n8k32` s8 * s8 + s32 tiles per row tile and group
-// of 8 lanes — A the constant planes, their rows zero-padded to 16-row tiles
-// and the limb axis to k = 32, held in shared memory; B eight lanes' digit
-// planes, which each thread stages into shared memory as a row of 32 bytes
-// and reads back in the fragment layout (k contiguous). The low-high and
-// high-low products accumulate into one tile, and each column recombines as
-// p00 + ((p01 + p10) << 7) + (p11 << 14) in unsigned 32 bits (every column
-// < 2^31), written to shared memory, where its lane reads it back. A
-// ragged warp runs the tensor-core steps on zero digits and stores nothing.
-// `wgmma` would need 64-row tiles of one operand shared by the warp group;
-// that is for a later change.
+// Design: on the 32-bit layer (fe32.cuh; the step's word-and-carry code is
+// chain32.cuh), built per Montgomery field of N <= 12 words (the traits
+// class Field32 of kfe.fe32_field_header). A block is one warpgroup of 128
+// threads and takes MXU_LANES = 64 lanes: thread t < 64 owns lane t and
+// keeps it in fe32 words in registers, loads it from its 13-bit rows once
+// (R13 -> R32) and stores canonical 13-bit limbs once; threads 64-127 own
+// no lane and take part in the products and the accumulators' stores
+// alone. One step, x y R32^-1 with R32 = 2^(32N):
+//   1. T = x y in 2N words (fe32::mul_wide): it has no shared operand, so
+//      it stays on the CUDA cores. T's low half goes to shared memory as
+//      the lane's 4N digit bytes: a word array is already its bytes, so no
+//      split is needed.
+//   2. The column sums of N' x (T mod R32): one m64n64k32 `wgmma` per k
+//      step of 32 bytes; A the constant's Toeplitz matrix (rows the
+//      output's byte columns, padded to 64; loaded into shared memory once
+//      a block), B the lanes' digits; both K-major without swizzle, the one
+//      layout 8-bit `wgmma` takes. The accumulators (s32, each sum below
+//      2^22) go to shared memory, [lane][column], and each thread reads its
+//      lane's back: m = the low N words of their fold.
+//   3. m's bytes go back as B; the m p product (8N rows, one or two 64-row
+//      tiles) the same way; the thread folds its 8N sums into u = T + m p,
+//      whose high N words (below 2p) take one conditional subtraction.
+// Each `wgmma` reads shared memory written by threads, so every write is
+// followed by `fence.proxy.async` and a barrier of the block before the
+// product; every product is waited for before its operands are rewritten.
+// A lane past B runs every product on zero digits and stores nothing.
 //
-// Bound: operations on the CUDA cores — per step n^2 multiply-adds of the
-// convolution and about 22 n adds, ANDs and shifts of the carries, the plane
-// splits and the recombination — against 4 * 3 n^2 int8 multiply-adds per
-// step on the tensor cores, which at the card's dense int8 rate take a small
-// fraction of that.
+// Bound (kernels.mxu_step_counts): on the CUDA cores, per step and lane,
+// N^2 wide products, the carries of 3N words folded from the column sums
+// and one conditional subtraction; on the tensor cores the two products'
+// nonzero bands, 4N (4N + 1) / 2 + 16 N^2 byte multiply-adds a lane and
+// step (1552 at N = 8; the padded tiles run 4096), which at the card's
+// dense int8 rate take a few hundredths of the CUDA cores' time. The round
+// trips through shared memory are this kernel's cost, not the function's,
+// and the row's bound is also held to the layer's own multiply on the same
+// chain (kernels.designs: "cios").
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kfe_mxu_chain.cuh"
+#include "chain32.cuh"
 
-#define N KFE_FP_N
-#define BITS KFE_FP_BITS
-#define MASK ((1u << BITS) - 1u)
-#define CHAIN 16
-#define KD 32                     // the mma's depth: the limb axis, padded
-#define MT ((N + 15) / 16)        // row tiles of the N' product (n rows)
-#define PT ((2 * N + 15) / 16)    // row tiles of the p product (2n rows)
-#define THREADS 32
+// Lanes a block. A sweep over 64, 128 and 256 lanes a warpgroup and one or
+// two warpgroups a block found 64 x 1 fastest at B = 8192 on an H100
+// (device ms a call on p256.fp 0.0256 against 0.0274 at 128 lanes and
+// 0.0467 at 256, two warpgroups a block 0.0340-0.0709; k256mxu.fp the
+// same within 2%; PERF.md §6): 128 blocks cover 128 of the 132 SMs, and a
+// thread's one lane keeps its registers at 90.
+#define MXU_LANES 64
 
-static_assert(N <= KD, "one k step of the mma holds the limb axis");
-static_assert(BITS <= 14, "both planes of a digit fit int8");
+using C = Field32;
+using Shape = fe32::MxuShape<C::N>;
+constexpr int N = C::N;
+constexpr int A1_BYTES = Shape::M1 * Shape::KB, A2_BYTES = Shape::M2 * Shape::KB;
+constexpr int B_BYTES = MXU_LANES * Shape::KB;
+constexpr int SMEM = A1_BYTES + A2_BYTES + B_BYTES + MXU_LANES * Shape::SS * 4;
 
-struct Smem {
-  int8_t m_lo[MT * 16][KD], m_hi[MT * 16][KD];  // N' planes [n, n], padded
-  int8_t p_lo[PT * 16][KD], p_hi[PT * 16][KD];  // p planes [2n, n], padded
-  int8_t d_lo[THREADS][KD], d_hi[THREADS][KD];  // the lanes' digit planes
-  uint32_t res[PT * 16][THREADS];               // recombined columns
-};
+static_assert(C::MONT, "mxu_chain runs on a Montgomery field");
+static_assert(N <= 12, "mxu_chain takes fields of at most 12 words");
 
-__device__ static inline uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// d += a * b on one m16n8k32 tile (int8 in, int32 accumulate)
-__device__ static inline void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                     const uint32_t (&b)[2]) {
+// The matrix descriptor of a K-major operand at p without swizzle (the
+// layout of fe32::mxu_offset): start address, leading byte offset 128 (the
+// next 16 bytes of K), stride byte offset 8 KB (the next 8 rows), each in
+// 16-byte units; base offset 0, layout type 0.
+__device__ __forceinline__ uint64_t desc(const uint8_t* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)(128u >> 4) << 16) |
+         ((uint64_t)((8u * Shape::KB) >> 4) << 32);
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the accumulators pinned in place around the asynchronous product
+__device__ __forceinline__ void hold(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A B for one 64 x 64 tile, k = 32 bytes (scale_d 0: d = A B)
+__device__ __forceinline__ void mma_u8(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// out[k] = sum_i C[k, i] * d[i] for k < ROWS, C the constant planes lo/hi
-// of TILES row tiles, d this lane's n digits; the warp runs it together.
+// The column sums of the constant matrix A (TILES tiles of 64 rows) times
+// the lanes' digits op, rows below ROWS, to sums[lane * SS + row]. A
+// thread's accumulator d[4j + e] of a 64 x 64 tile holds row 16 warp +
+// lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2.
 template <int TILES, int ROWS>
-__device__ static void const_conv(Smem& s, const int8_t (*c_lo)[KD],
-                                  const int8_t (*c_hi)[KD], const uint32_t* d,
-                                  uint32_t* out) {
-  const int lane = threadIdx.x;
-  for (int k = 0; k < N; ++k) {
-    s.d_lo[lane][k] = (int8_t)(d[k] & 127u);
-    s.d_hi[lane][k] = (int8_t)(d[k] >> 7);
-  }
-  __syncwarp();
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int nt = 0; nt < THREADS / 8; ++nt) {
-    const int col = 8 * nt + g;  // B's column: this group's lane
-    const uint32_t b_lo[2] = {ld32(&s.d_lo[col][4 * t]),
-                              ld32(&s.d_lo[col][16 + 4 * t])};
-    const uint32_t b_hi[2] = {ld32(&s.d_hi[col][4 * t]),
-                              ld32(&s.d_hi[col][16 + 4 * t])};
+__device__ __forceinline__ void product(const uint8_t* A, const uint8_t* op,
+                                        uint32_t* __restrict__ sums, int t) {
+  const int warp = t / 32, ln = t % 32;
 #pragma unroll
-    for (int rt = 0; rt < TILES; ++rt) {
-      const int r = 16 * rt + g;
-      const uint32_t a_lo[4] = {ld32(&c_lo[r][4 * t]), ld32(&c_lo[r + 8][4 * t]),
-                                ld32(&c_lo[r][16 + 4 * t]),
-                                ld32(&c_lo[r + 8][16 + 4 * t])};
-      const uint32_t a_hi[4] = {ld32(&c_hi[r][4 * t]), ld32(&c_hi[r + 8][4 * t]),
-                                ld32(&c_hi[r][16 + 4 * t]),
-                                ld32(&c_hi[r + 8][16 + 4 * t])};
-      int p00[4] = {0, 0, 0, 0}, pmid[4] = {0, 0, 0, 0}, p11[4] = {0, 0, 0, 0};
-      mma_s8(p00, a_lo, b_lo);
-      mma_s8(pmid, a_lo, b_hi);
-      mma_s8(pmid, a_hi, b_lo);
-      mma_s8(p11, a_hi, b_hi);
+  for (int mt = 0; mt < TILES; ++mt) {
+    int d[32];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {  // D: row g (+8 for e >= 2), column 2t + e % 2
-        s.res[r + (e >> 1) * 8][8 * nt + 2 * t + (e & 1)] =
-            (uint32_t)p00[e] + ((uint32_t)pmid[e] << 7) +
-            ((uint32_t)p11[e] << 14);
+    for (int i = 0; i < 32; ++i) d[i] = 0;
+    hold(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < Shape::KB / 32; ++ks)
+      mma_u8(d, desc(A + mt * 64 * Shape::KB + ks * 256), desc(op + ks * 256), ks);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hold(d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 64 * mt + 16 * warp + ln / 4 + 8 * (e >> 1);
+        const int col = 8 * j + 2 * (ln % 4) + (e & 1);
+        if (row < ROWS) sums[col * Shape::SS + row] = (uint32_t)d[4 * j + e];
       }
     }
   }
-  __syncwarp();
-  for (int k = 0; k < ROWS; ++k) out[k] = s.res[k][lane];
-  __syncwarp();  // the next call rewrites d_lo, d_hi and res
 }
 
-__device__ static inline void carry(uint32_t* v, int count) {
-  uint32_t c = 0u;
-  for (int k = 0; k < count; ++k) {
-    const uint32_t t = v[k] + c;
-    v[k] = t & MASK;
-    c = t >> BITS;
-  }
-}
+__global__ void __launch_bounds__(128)
+    mxu_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                     const uint4* __restrict__ tiles, uint32_t* __restrict__ out, int B) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint8_t* A1 = smem;
+  const uint8_t* A2 = smem + A1_BYTES;
+  uint8_t* op = smem + A1_BYTES + A2_BYTES;
+  uint32_t* sums = reinterpret_cast<uint32_t*>(op + B_BYTES);
+  const int t = threadIdx.x;
+  for (int i = t; i < (A1_BYTES + A2_BYTES) / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = tiles[i];
+  fence_async();
+  __syncthreads();
 
-__device__ static void load_planes(int8_t (*dst)[KD], const int8_t* src,
-                                   int rows, int tiles) {
-  for (int e = threadIdx.x; e < tiles * 16 * KD; e += THREADS) {
-    const int r = e / KD, k = e % KD;
-    dst[r][k] = (r < rows && k < N) ? src[r * N + k] : (int8_t)0;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    mxu_chain_kernel(const uint32_t* __restrict__ a,
-                     const uint32_t* __restrict__ b,
-                     const int8_t* __restrict__ m_lo,
-                     const int8_t* __restrict__ m_hi,
-                     const int8_t* __restrict__ p_lo,
-                     const int8_t* __restrict__ p_hi,
-                     uint32_t* __restrict__ out, int B) {
-  __shared__ __align__(16) Smem s;
-  load_planes(s.m_lo, m_lo, N, MT);
-  load_planes(s.m_hi, m_hi, N, MT);
-  load_planes(s.p_lo, p_lo, 2 * N, PT);
-  load_planes(s.p_hi, p_hi, 2 * N, PT);
-  for (int k = N; k < KD; ++k) s.d_lo[threadIdx.x][k] = s.d_hi[threadIdx.x][k] = 0;
-  __syncwarp();
-
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = lane < B;  // a ragged warp still runs every mma
-  uint32_t x[N], y[N], T[2 * N], u[2 * N];
-  for (int i = 0; i < N; ++i) {
-    x[i] = live ? a[(size_t)i * B + lane] : 0u;
-    y[i] = live ? b[(size_t)i * B + lane] : 0u;
-  }
+  const uint32_t Bw = (uint32_t)B;
+  const int lane = blockIdx.x * MXU_LANES + t;
+  const bool owner = t < MXU_LANES, live = owner && lane < B;
+  fe32::E<C> x = live ? fe32::from_limbs<C>(a + lane, Bw) : fe32::zero<C>();
+  const fe32::E<C> y = live ? fe32::from_limbs<C>(b + lane, Bw) : fe32::zero<C>();
+  uint32_t th[N], nz = 0u;
 #pragma unroll 1
-  for (int step = 0; step < CHAIN; ++step) {
+  for (int step = 0; step < fe32::CHAIN; ++step) {
+    if (owner) {
+      uint32_t T[2 * N];
+      fe32::mul_wide<N>(x, y, T);
+      uint32_t any = 0u;
 #pragma unroll
-    for (int k = 0; k < 2 * N; ++k) T[k] = 0u;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) T[i + j] += x[i] * y[j];
-    carry(T, 2 * N);                                   // T: digits of x * y
-    const_conv<MT, N>(s, s.m_lo, s.m_hi, T, u);        // m = T * N'
-    carry(u, N);                                       // mod R
-    uint32_t m[N];
-    for (int k = 0; k < N; ++k) m[k] = u[k];
-    const_conv<PT, 2 * N>(s, s.p_lo, s.p_hi, m, u);    // m * p
-    for (int k = 0; k < 2 * N; ++k) u[k] += T[k];
-    carry(u, 2 * N);
-    for (int i = 0; i < N; ++i) x[i] = u[N + i];       // (T + m p) / R
+      for (int i = 0; i < N; ++i) {
+        any |= T[i];
+        th[i] = T[N + i];
+      }
+      nz = any != 0u;
+      fe32::mxu_put<N>(op, (uint32_t)t, T);
+    }
+    fence_async();
+    __syncthreads();
+    product<Shape::M1 / 64, 4 * N>(A1, op, sums, t);
+    __syncthreads();
+    if (owner) {
+      uint32_t m[N];
+      fe32::mxu_fold_m<N>(sums + t * Shape::SS, m);
+      fe32::mxu_put<N>(op, (uint32_t)t, m);
+    }
+    fence_async();
+    __syncthreads();
+    product<Shape::M2 / 64, 8 * N>(A2, op, sums, t);
+    __syncthreads();
+    if (owner) x = fe32::mxu_fold_u<C>(sums + t * Shape::SS, th, nz);
   }
-  if (live)
-    for (int i = 0; i < N; ++i) out[(size_t)i * B + lane] = x[i];
+  if (live) fe32::to_limbs<C>(x, out + lane, Bw);
 }
 
-// a, b, out [n, B] digits; m_lo, m_hi [n, n] and p_lo, p_hi [2n, n] int8.
-extern "C" int mxu_chain_launch(const void* a, const void* b, const void* m_lo,
-                                const void* m_hi, const void* p_lo,
-                                const void* p_hi, void* out, int B,
-                                int* launched, void* stream) {
+// a, b, out [NL, B] 13-bit rows; tiles: the N' and p matrices' bytes in the
+// operand layout (kernels.mxu_tiles), M1 + M2 rows of KB bytes.
+extern "C" int mxu_chain_launch(const void* a, const void* b, const void* tiles, void* out,
+                                int B, int* launched, void* stream) {
   *launched = 0;
   if (B == 0) return 0;
-  mxu_chain_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
-                     (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (const int8_t*)m_lo,
-      (const int8_t*)m_hi, (const int8_t*)p_lo, (const int8_t*)p_hi,
-      (uint32_t*)out, B);
+  if (SMEM > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mxu_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mxu_chain_kernel<<<(B + MXU_LANES - 1) / MXU_LANES, 128, SMEM, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (const uint4*)tiles, (uint32_t*)out, B);
   *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -25,32 +25,33 @@ the Pallas kernels of the JAX repo's tools/:
 | `ladder_probe` | csrc/ladder_probe.cu | `make(variant)`, profile_ladder.py:72 |
 
 Each kernel but `dma_gather` runs one thread per batch lane over limb-major
-[.., n, B] uint32 arrays. Eleven of them, `padd`, `pdouble`,
-`padd_chain`, `segscan`, `ladder`, `genmul`, `bucket_reduce`, `horner`,
-`pow`, `fixup` and the probe `ladder_probe` (FE32_KERNELS), run on the
-hand-written 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh): they
-convert their 13-bit rows to N words an element on load (N the curve's
-own, `kfe.fe32_words`: 6 for P-192 up to 17 for P-521), keep the point or
-element in registers, and store canonical 13-bit limbs; their generated
-header holds only constants (`kfe.fe32_header`: the curve's `Curve32`,
-with the GLV beta where the curve has an endomorphism, and its scalar
-field's `Scalar32`, on which `pow` runs for field 1). They build for
-every curve with a = 0 or a = -3; `pow`, which needs the two fields alone,
-also for bp256r1 and bp384r1, whose generic-a formulas the layer lacks
-(their point kernels raise NotImplementedError, as their plain formulas
-do). `ladder` and `ladder_probe` build their tables
-[O, Q, .., 8Q] in shared memory (`ladder_lanes`; the probe's one table a
-lane at PROBE_LANES lanes a block), `genmul` converts the comb into shared
-memory once a block, `pow` keeps its table x..x^15 in shared memory,
-`bucket_reduce` and `fixup` keep their points as words in a scratch
-between their steps. `fmul_chain` and `mxu_chain` call straight-line
-field functions that ops/kfe.py generates from the KFE bound ledger into a
-header per (target, kernel). A target is a curve, a bare field spec
-(`fmul_chain`, `mxu_chain`: its multiply, its limb count and width), or
-None (`dma_gather`, which has no
+[.., n, B] uint32 arrays (`mxu_chain`: a warpgroup of 128 threads per
+MXU_LANES lanes). The thirteen others (FE32_KERNELS) run on the
+hand-written 32-bit field layer (csrc/fe32.cuh, csrc/point32.cuh,
+csrc/chain32.cuh): they convert their 13-bit rows to N words an element
+on load (N the field's own, `kfe.fe32_words`: 6 for P-192 up to 17 for
+P-521), keep the point or element in registers, and store canonical
+13-bit limbs; their generated header holds only constants. A build
+target is a curve, a bare field spec, or None (`dma_gather`, which has no
 generated header: a ring of `cp.async.bulk` row copies in each warp's
 shared memory, GATHER_WARPS warps a block, at most GATHER_ROWS rows a
-warp). The
+warp). For a curve the header is `kfe.fe32_header`: the curve's
+`Curve32`, with the GLV beta where the curve has an endomorphism, and its
+scalar field's `Scalar32`, on which `pow` runs for field 1. The point
+kernels build for every curve with a = 0 or a = -3; `pow`, which needs
+the two fields alone, also for bp256r1 and bp384r1, whose generic-a
+formulas the layer lacks (their point kernels raise NotImplementedError,
+as their plain formulas do). For a bare field (FIELD_KERNELS: the
+probes' `fmul_chain` and `mxu_chain`) the header is
+`kfe.fe32_field_header`'s `Field32`. `ladder` and `ladder_probe` build
+their tables [O, Q, .., 8Q] in shared memory (`ladder_lanes`; the probe's
+one table a lane at PROBE_LANES lanes a block), `genmul` converts the
+comb into shared memory once a block, `pow` keeps its table x..x^15 in
+shared memory, `bucket_reduce` and `fixup` keep their points as words in
+a scratch between their steps, and `mxu_chain` runs its reduction's two
+constant products as byte-digit `wgmma` products (`mxu_tiles`). No
+kernel builds from the 13-bit generated code (`kfe.kernel_header`), whose
+counts stay the "kfe" design of the bounds. The
 build is nvcc by hand into a shared library with a plain C interface, bound
 with ctypes, at first use (or by `build_targets`) into build/kernels/ beside
 the package; a content hash of the source, the csrc/ headers it includes,
@@ -60,11 +61,12 @@ or include rebuilds.
 Each wrapper takes its plain twin for a CPU tensor and launches its kernel
 for a CUDA tensor, on the current stream; `launches[name]` counts the
 kernel launches that its C entry reports making.
-The twins are plain tensor code that repeats each kernel's own algorithm,
-so a kernel's output equals its twin's limb for limb; for the eleven
-kernels on the 32-bit layer, `pow`'s element and each projective
-coordinate of the others equal the twin's mod p (the same operations in
-the same order; the limb plan differs, and the kernels store canonical
+The twins are plain tensor code that repeats each kernel's algorithm in
+the 13-bit plan, so `dma_gather`'s output equals its twin's word for
+word; for the thirteen kernels on the 32-bit layer, `pow`'s,
+`fmul_chain`'s and `mxu_chain`'s element and each projective coordinate
+of the others equal the twin's mod p (the same field operations in the
+same order; the limb plan differs, and the kernels store canonical
 values), and `segscan` writes only the run-end rows of `scanned`.
 
 Limbs cross to the kernels as int32 tensors that carry the uint32 bits:
@@ -112,51 +114,52 @@ none and runs as fast. Every other source and curve builds at -O3, where
 secp256k1's chain runs 7.5% faster than at -O1 (PERF.md, tools/bench_blocks.py)."""
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# name -> (source, generated functions, C entry point, its argtypes before
-#          the launch count and the stream, the TPU kernel it replaces);
+# name -> (source, C entry point, its argtypes before the launch count and
+#          the stream, the TPU kernel it replaces);
 # `padd` launches padd_chain's library at one add and counts as `padd`
 KERNELS = {
-    "padd": ("padd_chain.cu", (), "padd_chain_launch", [_VP, _VP, _VP, _I, _I],
+    "padd": ("padd_chain.cu", "padd_chain_launch", [_VP, _VP, _VP, _I, _I],
              "tpu_ecc/ops/pallas_kernels.py:379"),
-    "pdouble": ("pdouble.cu", (), "pdouble_launch", [_VP, _VP, _I],
+    "pdouble": ("pdouble.cu", "pdouble_launch", [_VP, _VP, _I],
                 "tpu_ecc/ops/pallas_kernels.py:403"),
-    "padd_chain": ("padd_chain.cu", (), "padd_chain_launch",
+    "padd_chain": ("padd_chain.cu", "padd_chain_launch",
                    [_VP, _VP, _VP, _I, _I],
                    "tpu_ecc/ops/pallas_kernels.py:426"),
-    "pow": ("pow.cu", (), "pow_launch", [_VP, _VP, _VP, _I, _I, _I],
+    "pow": ("pow.cu", "pow_launch", [_VP, _VP, _VP, _I, _I, _I],
             "tpu_ecc/ops/pallas_kernels.py:1140"),
-    "ladder": ("ladder.cu", (), "ladder_launch",
+    "ladder": ("ladder.cu", "ladder_launch",
                [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:887"),
-    "genmul": ("genmul.cu", (), "genmul_launch",
+    "genmul": ("genmul.cu", "genmul_launch",
                [_VP, _VP, _VP, _VP, _I, _I],
                "tpu_ecc/ops/pallas_kernels.py:1048"),
-    "segscan": ("segscan.cu", (), "segscan_launch",
+    "segscan": ("segscan.cu", "segscan_launch",
                 [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I],
                 "tpu_ecc/ops/pallas_kernels.py:463"),
-    "fixup": ("fixup.cu", (), "fixup_launch",
+    "fixup": ("fixup.cu", "fixup_launch",
               [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I],
               "tpu_ecc/ops/pallas_kernels.py:647"),
-    "bucket_reduce": ("bucket_reduce.cu", (), "bucket_reduce_launch",
+    "bucket_reduce": ("bucket_reduce.cu", "bucket_reduce_launch",
                       [_VP, _VP, _VP, _I, _I, _I],
                       "tpu_ecc/ops/pallas_kernels.py:733"),
-    "horner": ("horner.cu", (), "horner_launch",
+    "horner": ("horner.cu", "horner_launch",
                [_VP, _VP, _I, _I], "tpu_ecc/ops/pallas_kernels.py:814"),
-    "dma_gather": ("dma_gather.cu", (), "dma_gather_launch",
+    "dma_gather": ("dma_gather.cu", "dma_gather_launch",
                    [_VP, _VP, _VP, _I, _I, _I, _I, _I],
                    "tools/bench_gather_probe.py:82"),
-    "fmul_chain": ("fmul_chain.cu", ("fp_mul",), "fmul_chain_launch",
+    "fmul_chain": ("fmul_chain.cu", "fmul_chain_launch",
                    [_VP, _VP, _VP, _I], "tools/bench_mxu_mul.py:118"),
-    "mxu_chain": ("mxu_chain.cu", (), "mxu_chain_launch",
-                  [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I],
-                  "tools/bench_mxu_mul.py:232"),
-    "ladder_probe": ("ladder_probe.cu", (), "ladder_probe_launch",
+    "mxu_chain": ("mxu_chain.cu", "mxu_chain_launch",
+                  [_VP, _VP, _VP, _VP, _I], "tools/bench_mxu_mul.py:232"),
+    "ladder_probe": ("ladder_probe.cu", "ladder_probe_launch",
                      [_VP, _VP, _VP, _VP, _I, _I, _I], "tools/profile_ladder.py:72"),
 }
 
 FE32_KERNELS = ("padd", "pdouble", "padd_chain", "segscan", "ladder", "genmul", "bucket_reduce",
-                "horner", "pow", "fixup", "ladder_probe")
-"""The kernels on the 32-bit field layer."""
+                "horner", "pow", "fixup", "ladder_probe", "fmul_chain", "mxu_chain")
+"""The kernels on the 32-bit field layer: every kernel but dma_gather."""
+FIELD_KERNELS = ("fmul_chain", "mxu_chain")
+"""The kernels built per bare field spec (`kfe.fe32_field_header`)."""
 
 TBL = 9   # signed-digit table [O, Q, .., 8Q]
 SMEM_BLOCK = 232448
@@ -168,6 +171,9 @@ FIXUP_LANES = 128   # the lanes a block of `fixup` (csrc/fixup.cu FIXUP_THREADS)
 PROBE_LANES = 64    # the lanes a block of `ladder_probe` (csrc/ladder_probe.cu PROBE_THREADS)
 GATHER_WARPS = 4    # the warps a block of `dma_gather` (csrc/dma_gather.cu GATHER_WARPS)
 GATHER_ROWS = 32    # the most rows a warp of `dma_gather` gathers (GATHER_ROWS)
+FMUL_LANES = 64     # the lanes a block of `fmul_chain` (csrc/fmul_chain.cu FMUL_THREADS)
+MXU_LANES = 64      # the lanes a block (one warpgroup) of `mxu_chain` (csrc/mxu_chain.cu)
+MXU_MAX_WORDS = 12  # the widest field `mxu_chain` takes, in words (P-384's)
 CHAIN = 16   # multiplies per lane in fmul_chain and mxu_chain (the tool's)
 PROBE_VARIANTS = ("bare", "unroll", "build", "select", "negate")
 
@@ -197,12 +203,6 @@ def _nvcc() -> str:
     return found
 
 
-def functions(name: str, target) -> tuple:
-    """The generated functions kernel `name` takes for `target` (a curve, a
-    field spec or None); none for FE32_KERNELS."""
-    return KERNELS[name][1]
-
-
 def target_name(target) -> str:
     """A build target's name: the curve's or the field's, "any" for None."""
     return "any" if target is None else target.name
@@ -228,9 +228,9 @@ def includes(src_file: str) -> list:
 def _header(name: str, target) -> str:
     if target is None:
         return ""
-    if name in FE32_KERNELS:
-        return kfe.fe32_header(target, fields_only=name == "pow")
-    return kfe.kernel_header(target, functions(name, target))[0]
+    if name in FIELD_KERNELS:
+        return kfe.fe32_field_header(target)
+    return kfe.fe32_header(target, fields_only=name == "pow")
 
 
 def _flags(src_file: str, target) -> tuple:
@@ -315,8 +315,8 @@ def _bind(name: str, target):
         so, _, _ = _target(name, target)
         if not os.path.exists(so):
             build_targets([(target, name)])
-        fn = getattr(ctypes.CDLL(so), KERNELS[name][2])
-        fn.argtypes = [*KERNELS[name][3], ctypes.POINTER(_I), _VP]
+        fn = getattr(ctypes.CDLL(so), KERNELS[name][1])
+        fn.argtypes = [*KERNELS[name][2], ctypes.POINTER(_I), _VP]
         fn.restype = ctypes.c_int
         _bound[key] = fn
     return _bound[key]
@@ -864,14 +864,17 @@ def dma_gather_plain(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def fmul_chain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a <- a * b, CHAIN times, each product clamped steady (the generated
-    `kfe_fp_mul`): steady limbs a, b [n, B] -> steady [n, B]. On a
-    Montgomery field each product carries R^-1."""
+    """a <- a * b, CHAIN times: steady limbs a, b [n, B] -> steady [n, B].
+    On a Montgomery field each product carries R^-1 (R13 = 2^(13n) in the
+    twin, which clamps each product steady; R32 in the kernel, on the
+    32-bit layer's `mul`, whose load and store map R13 to R32 and back).
+    The kernel returns canonical limbs: equal mod p to the twin's."""
     if a.device.type == "cpu":
         return fmul_chain_plain(spec, a, b)
     n, B = spec.n_limbs, a.shape[-1]
     _check(a, (n, B), "fmul_chain a")
     _check(b, (n, B), "fmul_chain b")
+    _check_words(a, "fmul_chain a")
     a32, b32 = _u32(a), _u32(b)
     out = torch.empty((n, B), dtype=torch.int32, device=a.device)
     _launch("fmul_chain", spec, a.device, a32.data_ptr(), b32.data_ptr(),
@@ -935,29 +938,82 @@ def mont_step(spec: F.FieldSpec, x: torch.Tensor, y: torch.Tensor, const_conv) -
 
 
 def mxu_chain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a <- mont_step(a, b), CHAIN times, on a Montgomery field: canonical
-    digits a, b [n, B] -> digits [n, B] below 2p. The two constant products
-    of each step run on the int8 tensor cores in 7 + 6-bit planes."""
+    """a <- a b R^-1, CHAIN times, on a Montgomery field: canonical digits
+    a, b [n, B] -> [n, B]. The twin runs the tool's separated multiply on
+    13-bit digits (`mont_step`, R13; digits below 2p). The kernel runs it on
+    the 32-bit layer (R32 = 2^(32N), which its load and store map to R13
+    and back): T = x y on the CUDA cores, the reduction's two constant
+    products m = T N' mod R32 and m p as byte-digit `wgmma` products on the
+    tensor cores (`mont_byte_matrices`); it takes fields of at most
+    MXU_MAX_WORDS words and raises ValueError for a wider one before any
+    build or launch. It returns canonical limbs: equal mod p to the twin's."""
     if spec.kind != "mont":
         raise ValueError(f"mxu_chain: {spec} is not a Montgomery field")
     if a.device.type == "cpu":
         return mxu_chain_plain(spec, a, b)
+    words = kfe.fe32_words(spec)
+    if words > MXU_MAX_WORDS:
+        raise ValueError(f"mxu_chain: {spec.name} takes N = {words} words; the kernel takes "
+                         f"Montgomery fields of at most N = {MXU_MAX_WORDS}")
     n, B = spec.n_limbs, a.shape[-1]
     _check(a, (n, B), "mxu_chain a")
     _check(b, (n, B), "mxu_chain b")
+    _check_words(a, "mxu_chain a")
     a32, b32 = _u32(a), _u32(b)
-    planes = _mont_planes(spec, a.device)
+    tiles = _mxu_tiles_on(spec, a.device)
     out = torch.empty((n, B), dtype=torch.int32, device=a.device)
-    _launch("mxu_chain", spec, a.device, a32.data_ptr(), b32.data_ptr(),
-            *(t.data_ptr() for t in planes), out.data_ptr(), B)
+    _launch("mxu_chain", spec, a.device, a32.data_ptr(), b32.data_ptr(), tiles.data_ptr(),
+            out.data_ptr(), B)
     return _from_u32(out)
 
 
+def mxu_shape(spec: F.FieldSpec) -> dict:
+    """mxu_chain's product shapes at the field's N words (csrc/chain32.cuh
+    MxuShape): KB digit bytes a lane (4N, padded to the 32-byte k step), M1
+    and M2 rows of the N' and p matrices (4N and 8N, padded to 64-row
+    tiles), SS words of column sums a lane in shared memory (at least 8N,
+    4 mod 16)."""
+    N = kfe.fe32_words(spec)
+    return {"N": N, "KB": 32 * -(-4 * N // 32), "M1": 64 * -(-4 * N // 64),
+            "M2": 64 * -(-8 * N // 64), "SS": (8 * N + 11) // 16 * 16 + 4}
+
+
 @functools.lru_cache(maxsize=None)
-def _mont_planes(spec: F.FieldSpec, device: torch.device) -> tuple:
-    """(Mlo, Mhi [n, n], Plo, Phi [2n, n]) int8 on `device`."""
-    Mc, Pc = mont_matrices(spec)
-    return tuple(torch.from_numpy(p).to(device) for p in (*_planes_np(Mc), *_planes_np(Pc)))
+def mont_byte_matrices(spec: F.FieldSpec) -> tuple:
+    """mxu_chain's two constant Toeplitz matrices of bytes, uint8 [M1, KB]
+    and [M2, KB] (`mxu_shape`, zero-padded): A1[k, j] = byte k - j of N' =
+    -p^-1 mod R32 (k < 4N: m = T N' mod R32) and A2[k, j] = byte k - j of p
+    (k < 8N: m p), R32 = 2^(32N); a lane's digits are its words' 4N bytes."""
+    sh = mxu_shape(spec)
+    N, KB = sh["N"], sh["KB"]
+    R = 1 << (32 * N)
+    nprime = (-pow(spec.p, -1, R)) % R
+    out = []
+    for v, rows, M in ((nprime, 4 * N, sh["M1"]), (spec.p, 8 * N, sh["M2"])):
+        m = np.zeros((M, KB), np.uint8)
+        m[:rows, :4 * N] = _toeplitz(list(v.to_bytes(4 * N, "little")), rows, 4 * N)
+        out.append(m)
+    return tuple(out)
+
+
+def core_tiles(m: np.ndarray) -> np.ndarray:
+    """A byte matrix [rows, KB] (rows a multiple of 8, KB of 16) in the
+    kernel's operand layout, uint8 [rows KB]: K-major without swizzle, core
+    matrices of 8 rows x 16 bytes, the 16-byte chunks of a row 128 B apart,
+    each 8 rows 8 KB bytes apart (csrc/chain32.cuh mxu_offset)."""
+    M, KB = m.shape
+    return m.reshape(M // 8, 8, KB // 16, 16).transpose(0, 2, 1, 3).reshape(-1)
+
+
+def mxu_tiles(spec: F.FieldSpec) -> np.ndarray:
+    """The two byte matrices (`mont_byte_matrices`) in the kernel's operand
+    layout (`core_tiles`), one after the other, uint8 [(M1 + M2) KB]."""
+    return np.concatenate([core_tiles(m) for m in mont_byte_matrices(spec)])
+
+
+@functools.lru_cache(maxsize=None)
+def _mxu_tiles_on(spec: F.FieldSpec, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(mxu_tiles(spec)).to(device)
 
 
 def mxu_chain_plain(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1049,9 +1105,13 @@ def _total(*terms) -> dict:
 
 def designs(name: str) -> tuple:
     """The designs whose instruction counts `work` gives for kernel `name`:
-    the 13-bit generated code ("kfe") for every kernel, and the 32-bit
-    layer ("fe32") for FE32_KERNELS, which now run on it. A row's bound is
-    the least of its designs' times."""
+    the 13-bit generated code ("kfe", which no kernel runs any more) for
+    every kernel, the 32-bit layer ("fe32") for FE32_KERNELS, which run on
+    it, and for `mxu_chain` also "cios": the same chain by the layer's own
+    multiply, as `fmul_chain` runs it. A row's bound is the least of its
+    designs' times."""
+    if name == "mxu_chain":
+        return ("kfe", "fe32", "cios")
     return ("kfe", "fe32") if name in FE32_KERNELS else ("kfe",)
 
 
@@ -1068,8 +1128,13 @@ def work(name: str, target, B: int, design: str = "kfe", **kw) -> tuple:
     in their run, over all steps), `ends` the run-end rows over all lanes
     (the rows segscan writes). `mxu_chain` adds the int8 tensor-core
     operations (two per multiply-add) under "int8". `design` (see
-    `designs`): "kfe" counts the generated 13-bit code, "fe32" the 32-bit
-    layer (kfe.fe32_counts), whose IMAD.WIDE.U32 are under "wide"."""
+    `designs`): "kfe" counts the generated 13-bit code (for `mxu_chain` the
+    13-bit plan's four int8 planes), "fe32" the 32-bit layer
+    (kfe.fe32_counts; `mxu_chain`'s step `mxu_step_counts` and its two
+    byte-digit products), whose IMAD.WIDE.U32 are under "wide"; "cios"
+    `mxu_chain`'s chain by the layer's multiply."""
+    if design == "cios" and name == "mxu_chain":
+        return _work_fe32("fmul_chain", target, B)
     if design == "fe32":
         return _work_fe32(name, target, B, **kw)
     if design != "kfe":
@@ -1175,14 +1240,47 @@ def _segscan_bytes(pn: int, B: int, C: int, ends: int, signed: bool, **_) -> int
     return (C * (pn + 1 + signed) + 2 * pn + 1) * 4 * B + ends * pn * 4
 
 
-def _work_fe32(name: str, curve: CurveSpec, B: int, **kw) -> tuple:
-    """`work` for the 32-bit layer: its functions' counts (kfe.fe32_counts)
-    over the call. A row converts on load (3 coordinates) and on store."""
-    pn = 3 * curve.field.n_limbs
+def mxu_step_counts(shape: dict) -> tuple:
+    """What one step of mxu_chain's lane needs at least at `mxu_shape`'s N
+    words: (instructions on the CUDA cores by class, kfe.FE32_CLASSES;
+    byte multiply-adds on the tensor cores). On the CUDA cores: the 2N-word
+    product T = x y (N^2 IMAD.WIDE.U32, (N - 1)^2 second addends), the OR
+    of T's low half, 3N words each folded from four column sums and the
+    carry (three shift-adds and an add, 64 bits wide: 8), the high half's
+    add of T and of the low half's carry, and the conditional subtraction
+    (csrc/chain32.cuh); the round trips of digits and sums through shared
+    memory are the kernel's, not the function's, and are left out. On the
+    tensor cores: the nonzero band of the two Toeplitz products, 4N (4N +
+    1) / 2 for m = T N' mod R32 and 16 N^2 for m p, not the zero rows and
+    columns that pad them to 64-row tiles and 32-byte k steps."""
+    N = shape["N"]
+    step = {"wide": N * N, "imad": 0, "alu": N + 1 + N,
+            "other": (N - 1) ** 2 + 8 * 3 * N + 2 * N + 2 + N}
+    return step, 4 * N * (4 * N + 1) // 2 + 16 * N * N
 
+
+def _work_fe32(name: str, curve, B: int, **kw) -> tuple:
+    """`work` for the 32-bit layer: its functions' counts (kfe.fe32_counts)
+    over the call, on a curve or (FIELD_KERNELS) a bare field spec. A row
+    converts on load (3 coordinates) and on store."""
     def total(*terms) -> dict:
         return {k: sum(m * cnt[k] for m, cnt in terms) for k in kfe.FE32_CLASSES}
 
+    if name in FIELD_KERNELS:
+        # per lane: the loads of a and b, CHAIN multiplies (mxu_chain: CHAIN
+        # steps, each with its two products' byte multiply-adds on the
+        # tensor cores), the store; a, b and out once, and mxu_chain's
+        # constant tiles
+        spec, f = curve, kfe.fe32_counts(curve)
+        nbytes = 3 * spec.n_limbs * 4 * B
+        if name == "fmul_chain":
+            return total((2 * B, f["load"]), (CHAIN * B, f["mul"]), (B, f["store"])), nbytes
+        sh = mxu_shape(spec)
+        step, macs = mxu_step_counts(sh)
+        ops = total((2 * B, f["load"]), (CHAIN * B, step), (B, f["store"]))
+        ops["int8"] = CHAIN * B * 2 * macs
+        return ops, nbytes + (sh["M1"] + sh["M2"]) * sh["KB"]
+    pn = 3 * curve.field.n_limbs
     if name == "pow":
         # per lane: the load of x, 14 multiplies for the table and one a
         # nonzero digit, 4 squarings a digit, the store; in the field's count

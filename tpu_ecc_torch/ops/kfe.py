@@ -19,6 +19,13 @@ Python-int constants. So the same ledger code here runs on two limb types:
   elimination and the multiply-add and three-input-add fusions), by
   class; the kernels' operation bounds come from those counts.
 
+No kernel builds from `kernel_header` any more: every kernel of csrc/ runs
+on the hand-written 32-bit layer (csrc/fe32.cuh), whose constants come
+from `fe32_header` and `fe32_field_header` and whose instruction count is
+`fe32_counts`. The generator stays as the "kfe" design of each kernel's
+bound (ops/kernels.py `work`) and is held against tpu_ecc's engine
+(tests/test_torch_kfe.py).
+
 Each generated function takes steady inputs and returns `ksteady` outputs,
 exactly as tpu_ecc's Pallas bodies trace them (pallas_kernels.py:56-104,
 :173-197, :440-447, :955-998, :1094-1102, :1174-1205).
@@ -938,7 +945,8 @@ def function_table(target) -> dict:
 
 def kernel_header(target, names) -> tuple[str, dict]:
     """C++ header for `target` (a curve, or a bare field spec) with the
-    generated functions `names`, each named `kfe_<name>`, the limb counts
+    generated 13-bit functions `names` (no kernel includes it: their counts
+    are the "kfe" design of the bounds), each named `kfe_<name>`, the limb counts
     KFE_FP_N (and for a curve KFE_FN_N), the base field's limb width
     KFE_FP_BITS, and each field's encoded one. Returns (source, {name:
     instruction counts by class})."""
@@ -1147,6 +1155,20 @@ def fe32_header(curve, fields_only: bool = False) -> str:
             "#ifndef __device__\n#define __device__\n#endif\n#endif\n"
             + _traits("Curve32", base)
             + _traits("Scalar32", fe32_field_constants(curve.scalar)))
+
+
+def fe32_field_header(spec: FieldSpec) -> str:
+    """The generated header of a kernel on the 32-bit layer built for a bare
+    field (csrc/fmul_chain.cu, csrc/mxu_chain.cu): one traits class,
+    `Field32`, of `fe32_field_constants(spec)`, at the field's word count. A
+    bare field may belong to no curve (the probes' `k256mxu.fp`,
+    secp256k1's p forced onto Montgomery)."""
+    return ("// Generated by tpu_ecc_torch/ops/kfe.py (fe32_field_header). Do not edit.\n"
+            f"// The 32-bit field layer's constants for the field {spec.name}.\n"
+            "#pragma once\n#include <stdint.h>\n"
+            "#ifndef __CUDACC__\n#ifndef __host__\n#define __host__\n#endif\n"
+            "#ifndef __device__\n#define __device__\n#endif\n#endif\n"
+            + _traits("Field32", fe32_field_constants(spec)))
 
 
 class _Tally:
@@ -1368,3 +1390,4 @@ def fe32_counts(target) -> dict:
             t(**{c: times * v for c, v in out[op].items()})
         out[name] = t.c
     return out
+

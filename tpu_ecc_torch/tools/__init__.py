@@ -12,8 +12,10 @@ measures the IMAD.WIDE.U32 rate that the 32-bit layer's bound assumes, the
 second the ladder kernel's launch forms (csrc/ladder.cu builds each
 field's in the form it found fastest), the third the block sizes of
 bucket_reduce, pow, fixup and ladder_probe, dma_gather's warps a block and
-rows a warp, and the point-add chain's ptxas level, the fourth the device
-time of padd and pdouble against another checkout's.
+rows a warp, and the ptxas levels of the point-add and field-multiply
+chains, the fourth the device time of padd, pdouble, fmul_chain and
+mxu_chain against another checkout's. `devtime.device_ms` reads a
+kernel's device time for the last two and for `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -58,3 +60,4 @@ def best_seconds(fn, dev: torch.device, iters: int, rounds: int) -> float:
         sync(dev)
         best = min(best, (time.perf_counter() - t0) / iters)
     return best
+

@@ -1,15 +1,18 @@
 """Block sizes of the kernels that take theirs from a macro, and the ptxas
-level of the point-add chain: registers, spills and time on the card.
+level of the point-add chain and of the field-multiply chain: registers,
+spills and time on the card.
 
 csrc/bucket_reduce.cu, csrc/pow.cu, csrc/fixup.cu and csrc/ladder_probe.cu
 take their threads a block from BUCKET_THREADS, POW_THREADS, FIXUP_THREADS
 and PROBE_THREADS, which their __launch_bounds__ follow (and pow's and
 ladder_probe's table stride); csrc/dma_gather.cu its warps a block and the
-most rows a warp gathers from GATHER_WARPS and GATHER_ROWS. This builds
-each named kernel in each of its forms (`forms`: 32, 64 and 128 threads;
-for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows, nvcc
--D<macro>=k; for padd_chain, whose source is also `padd`'s, ptxas -O3
-and -O1; one process each, all started together), prints ptxas's
+most rows a warp gathers from GATHER_WARPS and GATHER_ROWS;
+and csrc/fmul_chain.cu its threads from FMUL_THREADS.
+This builds each named kernel in each of its forms (`forms`: 32, 64 and
+128 threads; for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows,
+nvcc -D<macro>=k; for padd_chain, whose source is also `padd`'s, ptxas
+-O3 and -O1; for fmul_chain 32, 64 and 128 threads each at ptxas -O3 and
+-O1; one process each, all started together), prints ptxas's
 registers and spills for each, holds each against its plain twin (by
 canonical values mod p; dma_gather exactly) at the main path's or the
 tool's shapes, and times them in turns through the kernel's wrapper
@@ -27,6 +30,8 @@ by torch.profiler's device time of the kernel's launches:
     padd_chain     the five N = 8 curves (secp256k1, P-256, bp256t1, SM2,
                    bign256), B = 8192, repeat 16 (the headline) and repeat
                    1 (the launch of padd_points)
+    fmul_chain     secp256k1's field, P-256's and k256mxu.fp (secp256k1's p
+                   forced onto Montgomery), B = 8192 (bench_mxu_mul's)
 
 For fixup it then times, at the size the source builds by default, the C
 entry alone (inputs converted and the scratch allocated once) against the
@@ -35,7 +40,7 @@ events around back-to-back calls and by torch.profiler's device time of
 the calls' launches.
 
     python3 -m tpu_ecc_torch.tools.bench_blocks [bucket_reduce] [pow] [fixup]
-        [ladder_probe] [dma_gather] [padd_chain]
+        [ladder_probe] [dma_gather] [padd_chain] [fmul_chain]
 """
 
 from __future__ import annotations
@@ -56,13 +61,14 @@ from ..ops import kfe
 from ..ops import points as P
 from ..utils import ec_host as H
 from . import bench_gather_probe, device_label, profile_ladder
+from .devtime import device_ms
 
 MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIXUP_THREADS",
           "ladder_probe": "PROBE_THREADS"}
 SIZES = (32, 64, 128)
 GATHER_WARPS, GATHER_ROWS = (4, 8, 16), (32, 64, 128)
 PTXAS_LEVELS = ("-O3", "-O1")
-SWEPT = (*MACROS, "dma_gather", "padd_chain")
+SWEPT = (*MACROS, "dma_gather", "padd_chain", "fmul_chain")
 CHAIN_B = 8192
 NBUCK, WINDOWS, LANES, ROWS = 8192, (8, 3), 8192, 128
 POW_B, LADDER_B = 4096, 4096
@@ -78,6 +84,9 @@ def forms(name: str) -> list:
                 for w in GATHER_WARPS for r in GATHER_ROWS]
     if name == "padd_chain":
         return [(f"ptxas {lv}", ("-Xptxas", lv)) for lv in PTXAS_LEVELS]
+    if name == "fmul_chain":
+        return [(f"{k} threads, ptxas {lv}", (f"-DFMUL_THREADS={k}", "-Xptxas", lv))
+                for k in SIZES for lv in PTXAS_LEVELS]
     return [(f"{k} threads", (f"-D{MACROS[name]}={k}",)) for k in SIZES]
 
 
@@ -124,8 +133,8 @@ def ptxas_lines(log: str) -> list:
 
 
 def _entry(so: str, name: str):
-    fn = getattr(ctypes.CDLL(so), K.KERNELS[name][2])
-    fn.argtypes = [*K.KERNELS[name][3], ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn = getattr(ctypes.CDLL(so), K.KERNELS[name][1])
+    fn.argtypes = [*K.KERNELS[name][2], ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -167,8 +176,8 @@ def _fixup_inputs(curve, windows: int, dev):
 
 
 def cases(names, dev) -> list:
-    """(kernel, curve or None, label, run(), the twin's canonical values,
-    spec or None)."""
+    """(kernel, build target (a curve, a field spec or None), label, run(),
+    the twin's canonical values, spec or None)."""
     out = []
     k256, p256 = get_curve("secp256k1"), get_curve("p256")
     if "bucket_reduce" in names:
@@ -211,6 +220,15 @@ def cases(names, dev) -> list:
                 out.append(("padd_chain", c, f"{c.name} repeat {repeat}",
                             lambda c=c, a=a, b=b, r=repeat: K.padd_chain(c, a, b, r),
                             _canonical(c.field, K.padd_chain_plain(c, a, b, repeat)), c.field))
+    if "fmul_chain" in names:
+        rng = np.random.default_rng(5)
+        for spec in (k256.field, p256.field, F.make_field_spec("k256mxu.fp", k256.p, "mont")):
+            vals = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(CHAIN_B)]
+            a = F.fe_from_ints(spec, vals, dev).limbs
+            b = F.fe_from_ints(spec, vals[::-1], dev).limbs
+            out.append(("fmul_chain", spec, spec.name,
+                        lambda spec=spec, a=a, b=b: K.fmul_chain(spec, a, b),
+                        _canonical(spec, K.fmul_chain_plain(spec, a, b)), spec))
     if "dma_gather" in names:
         pay = bench_gather_probe.device_payload(GATHER_N, GATHER_W, dev)
         idx = torch.from_numpy(np.random.default_rng(1).permutation(GATHER_N)
@@ -230,25 +248,6 @@ def _events_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _profiled_ms(fn, reps: int, kernel: str = "fixup") -> float:
-    """Device ms a call of fn() by torch.profiler: the self device time of
-    the launches of `kernel` (whose CUDA functions are named `<kernel>_...`)
-    over `reps` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if f"{kernel}_" in e.key:
-            us += next((getattr(e, a) for a in ("self_device_time_total", "self_cuda_time_total")
-                        if hasattr(e, a)), 0)
-    return us / 1e3 / reps
 
 
 def fixup_alone(so: str, dev) -> dict:
@@ -285,7 +284,7 @@ def fixup_alone(so: str, dev) -> dict:
         for r in range(ROUNDS):
             for w in (sorted(fns) if r % 2 == 0 else sorted(fns, reverse=True)):
                 got[w, "events"].append(_events_ms(fns[w], REPS))
-                got[w, "profiler"].append(_profiled_ms(fns[w], REPS))
+                got[w, "profiler"].append(device_ms(fns[w], REPS, "fixup"))
         out[g] = {f"{w} {m}": float(np.median(v)) for (w, m), v in got.items()}
         print(f"  fixup at {g} windows, ms a call (median of {ROUNDS} rounds in turns): "
               + ", ".join(f"{k} {v:.4f}" for k, v in out[g].items()), flush=True)
@@ -325,7 +324,7 @@ def main(argv=None) -> dict:
             for form in (labels if r % 2 == 0 else labels[::-1]):
                 K._bound[name, tname] = entries[name, tname, form]
                 ms[form].append(_events_ms(run, REPS))
-                dev_ms[form].append(_profiled_ms(run, REPS, name))
+                dev_ms[form].append(device_ms(run, REPS, name))
         row = result.setdefault(name, {})
         for form in labels:
             lines = ptxas_lines(built[name, tname, form][1])

@@ -9,7 +9,8 @@ The port of the JAX repo's tools/bench_gather_probe.py. Two probes:
    bytes? If by bytes, a payload row of 2 coordinates instead of 3 gathers
    a third faster.
 2. `bench_dma_gather`: the `dma_gather` kernel (ops/kernels.py,
-   csrc/dma_gather.cu) at W = 128 and depth 2, 8 and 16: one
+   csrc/dma_gather.cu), timed over a chain of 8 dependent calls as the
+   index_select chain is, at W = 128 and depth 2, 8 and 16: one
    `cp.async.bulk` copy per row, `depth` in flight in each warp's ring,
    the rows XORed together, over chunks of Cb = 4096 indices; then at
    depth 8 with Cb = 1024 and 256. Its rate is the ceiling of a gather
@@ -90,26 +91,34 @@ def bench_take(N: int = 1 << 20, W: int = 64, M: int = 1 << 20, iters: int = 5,
 
 def bench_dma_gather(N: int = 1 << 20, W: int = 64, M: int = 1 << 18, Cb: int = CB,
                      depth: int = 8, iters: int = 5, device=None) -> float:
-    """Rows/s of the `dma_gather` kernel, each call's indices depending on
-    the last call's result."""
+    """Rows/s of the `dma_gather` kernel over a chain of REP dependent
+    calls, each call's indices depending on the last call's result (as
+    `bench_take`'s chain of index_select), best of `iters` chains: one call
+    between two synchronizes would time the launch and the sync with it."""
     dev = resolve_device(device)
     rng = np.random.default_rng(1)
     pay = device_payload(N, W, dev)
     idxs = _indices(rng, N, M, dev)
-    out = K.dma_gather(pay, idxs[0], Cb, depth)
+
+    def gather_chain(i):
+        o = None
+        for _ in range(REP):
+            o = K.dma_gather(pay, i, Cb, depth)
+            i = i ^ _top_bit(o[0, 0])
+        return o[0, :1]
+
+    gather_chain(idxs[0])
     sync(dev)
     best = float("inf")
     for t in range(iters):
-        i = idxs[t % 2] ^ _top_bit(out[0, 0])
-        sync(dev)
         t0 = time.perf_counter()
-        out = K.dma_gather(pay, i, Cb, depth)
+        gather_chain(idxs[t % 2])
         sync(dev)
         best = min(best, time.perf_counter() - t0)
-    rate = M / best
-    print(f"dma_gather    W={W:4d} depth={depth:2d} Cb={Cb:4d}: {best * 1e3:8.3f} ms "
-          f"({M} rows) -> {rate / 1e6:7.2f} Mrows/s  {rate * 4 * W / 1e9:7.1f} GB/s",
-          flush=True)
+    rate = REP * M / best
+    print(f"dma_gather    W={W:4d} depth={depth:2d} Cb={Cb:4d}: {best / REP * 1e3:8.3f} ms "
+          f"a call ({M} rows, a chain of {REP} calls) -> {rate / 1e6:7.2f} Mrows/s  "
+          f"{rate * 4 * W / 1e9:7.1f} GB/s", flush=True)
     return rate
 
 

@@ -19,13 +19,19 @@ At B = 8192, for P-256's field (Montgomery), secp256k1's field forced onto
 the Montgomery backend, and secp256k1's own (solinas), this measures:
 
   1. fmul on the plain torch path (`F._steady(F.fmul(..))`);
-  2. the `fmul_chain` kernel: 16 chained multiplies in one launch;
-  3. (Montgomery fields) the separated Montgomery multiply, the reduction's
-     constant products as library int8 matrix products (`torch._int_mm`),
-     checked against Python integers on 64 lanes;
+  2. the `fmul_chain` kernel: 16 chained multiplies in one launch, on the
+     32-bit layer's own multiply (csrc/fe32.cuh `mul`: the solinas fold or
+     CIOS at R32 = 2^(32N)), checked mod p against Python integers on 8
+     lanes;
+  3. (Montgomery fields) the separated Montgomery multiply above on 13-bit
+     digits, the reduction's constant products as library int8 matrix
+     products (`torch._int_mm`, four planes each), checked against Python
+     integers on 64 lanes: the JAX tool's plane algorithm, not a kernel;
   4. (Montgomery fields) the `mxu_chain` kernel: 16 chained separated
-     multiplies in one launch, the constant products on `mma.sync` int8
-     tiles, checked on 8 lanes.
+     multiplies in one launch on the 32-bit layer, the two constant
+     products as byte-digit `wgmma` products (u8 x u8 -> s32: 32-bit
+     words are their own bytes, so one product replaces the four planes),
+     checked mod p on 8 lanes.
 
     python3 -m tpu_ecc_torch.tools.bench_mxu_mul [batch] [--device cpu]
 """

@@ -1,20 +1,27 @@
 """Device time of the single point operations, `padd` and `pdouble` (the
-kernels behind padd_points and pdouble_points), against those of another
+kernels behind padd_points and pdouble_points), and of the probes'
+multiply chains, `fmul_chain` and `mxu_chain`, against those of another
 checkout of the package.
 
     python3 -m tpu_ecc_torch.tools.bench_point_ops [--against DIR] [--turns N]
 
 Each side runs in a process of its own (`python3 bench_point_ops.py
 --worker` with the side's checkout first on PYTHONPATH, so that it imports
-that side's tpu_ecc_torch and builds that side's kernels): B = 8192 points
-k*G on secp256k1 and P-256, each kernel held against its plain twin on
-the card (by canonical coordinates mod p), then REPS calls under
-torch.profiler, whose device time of the kernel's own launches (the
-wrapper's int32 conversions left out) gives the ms a call, and REPS calls
-between CUDA events (the wrapper's whole call). With --against DIR (for
-example a `git archive` of the parent commit unpacked into a directory)
-the sides run in turns, other, this, this, other, --turns rounds of four
-(default 1). Prints each worker's numbers and returns them.
+that side's tpu_ecc_torch and builds that side's kernels, all of them
+started together): B = 8192 points k*G on secp256k1 and P-256 for the
+point operations; B = 8192 random elements of secp256k1's field, P-256's
+and k256mxu.fp (secp256k1's p forced onto Montgomery) for fmul_chain, of
+the last two for mxu_chain (bench_mxu_mul's shapes). Each kernel is held
+against its plain twin on the card (by canonical values mod p), then REPS
+calls under torch.profiler, whose device time of the kernel's own
+launches (the wrapper's int32 conversions left out; `devtime.device_ms`
+of this checkout, which the worker, a script in this directory, imports
+for both sides) gives the ms a call, and REPS calls between CUDA events
+(the wrapper's whole call). With
+--against DIR (for example a `git archive` of the parent commit unpacked
+into a directory) the sides run in turns, other, this, this, other,
+--turns rounds of four (default 1). Prints each worker's numbers and
+returns them.
 """
 
 from __future__ import annotations
@@ -31,10 +38,11 @@ CURVES = ("secp256k1", "p256")
 
 
 def worker() -> dict:
-    """One side's numbers: {curve: {kernel: {"device_ms", "events_ms"}}}."""
+    """One side's numbers: {curve or field: {kernel: {"device_ms",
+    "events_ms"}}}."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from devtime import device_ms       # beside this file: the same code for both sides
 
     from tpu_ecc_torch.curves.specs import get_curve
     from tpu_ecc_torch.ops import fe as F
@@ -43,7 +51,9 @@ def worker() -> dict:
     from tpu_ecc_torch.utils import ec_host as H
 
     dev = torch.device("cuda")
-    out = {}
+    # (target, kernel, run, twin, field): points [3, n, B] compared by each
+    # coordinate, field elements [n, B] as they are
+    runs = []
     for name in CURVES:
         c = get_curve(name)
         rng = np.random.default_rng(11)
@@ -52,35 +62,43 @@ def worker() -> dict:
         Q = P.point_limbs(P.steady(P.from_affine_ints(c, [p[0] for p in pts],
                                                       [p[1] for p in pts], dev)))
         a, b = Q[..., :B].contiguous(), Q[..., B:].contiguous()
-        runs = {"padd": (lambda: K.padd(c, a, b), lambda: K.padd_plain(c, a, b)),
-                "pdouble": (lambda: K.pdouble(c, a), lambda: K.pdouble_plain(c, a))}
-        K.build(c, list(runs))
-        out[name] = {}
-        for kname, (kern, plain) in runs.items():
-            got, want = kern(), plain()
-            for i in range(3):
-                if not torch.equal(F.fcanonical(F.fe_steady(c.field, got[i])).limbs,
-                                   F.fcanonical(F.fe_steady(c.field, want[i])).limbs):
-                    raise AssertionError(f"{kname} on {name} differs from its twin")
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(REPS):
-                    kern()
-                torch.cuda.synchronize()
-            # the kernel's own launches: padd_kernel, padd_chain_kernel or
-            # pdouble_kernel, by the side's source
-            us = sum(next((getattr(e, f) for f in ("self_device_time_total",
-                                                   "self_cuda_time_total") if hasattr(e, f)), 0)
-                     for e in prof.key_averages()
-                     if kname in e.key and "_kernel" in e.key)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(REPS):
-                kern()
-            end.record()
-            torch.cuda.synchronize()
-            out[name][kname] = {"device_ms": us / 1e3 / REPS,
-                                "events_ms": start.elapsed_time(end) / REPS}
+        runs += [(c, "padd", lambda c=c, a=a, b=b: K.padd(c, a, b),
+                  lambda c=c, a=a, b=b: K.padd_plain(c, a, b), c.field),
+                 (c, "pdouble", lambda c=c, a=a: K.pdouble(c, a),
+                  lambda c=c, a=a: K.pdouble_plain(c, a), c.field)]
+    k256 = get_curve("secp256k1")
+    mxu = F.make_field_spec("k256mxu.fp", k256.p, "mont")
+    rng = np.random.default_rng(9)
+    for spec in (k256.field, get_curve("p256").field, mxu):
+        vals = [int.from_bytes(rng.bytes(32), "big") % spec.p for _ in range(B)]
+        a = F.fe_from_ints(spec, vals, dev).limbs
+        b = F.fe_from_ints(spec, vals[::-1], dev).limbs
+        for kname in ("fmul_chain", "mxu_chain") if spec.kind == "mont" else ("fmul_chain",):
+            runs.append((spec, kname, lambda f=getattr(K, kname), s=spec, a=a, b=b: f(s, a, b),
+                         lambda f=getattr(K, f"{kname}_plain"), s=spec, a=a, b=b: f(s, a, b),
+                         spec))
+    K.build_targets([(t, kname) for t, kname, *_ in runs])
+
+    def canonical(spec, t):
+        return F.fcanonical(F.fe_steady(spec, t.to(torch.int64))).limbs
+
+    out = {}
+    for target, kname, kern, plain, spec in runs:
+        got, want = kern(), plain()
+        pairs = zip(got, want) if got.dim() == 3 else [(got, want)]
+        if not all(torch.equal(canonical(spec, g), canonical(spec, w)) for g, w in pairs):
+            raise AssertionError(f"{kname} on {target.name} differs from its twin")
+        # the kernel's own launches: padd_kernel or padd_chain_kernel (by the
+        # side's source), pdouble_kernel, fmul_chain_kernel, mxu_chain_kernel
+        dev_ms = device_ms(kern, REPS, kname)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(REPS):
+            kern()
+        end.record()
+        torch.cuda.synchronize()
+        out.setdefault(target.name, {})[kname] = {"device_ms": dev_ms,
+                                                  "events_ms": start.elapsed_time(end) / REPS}
     return out
 
 
