@@ -10,9 +10,10 @@
    Montgomery, k256mxu.fp; mxu_chain for the two Montgomery fields;
    ladder_probe for secp256k1); the ten of the main path for P-384 (N = 12
    words); pow, ladder, genmul, padd and pdouble for P-521 (N = 17), P-224
-   (7), P-192 (6), SM2, bign256, bp256t1 (8) and bp384t1 (12); pow for
-   bp256r1 and bp384r1 (padd is padd_chain's library at one add: one build
-   serves both); then the native signing code (g++). Prints the seconds it
+   (7), P-192 (6), SM2, bign256, bp256t1 (8), bp384t1 (12) and, on the
+   generic-a formulas, bp256r1 (8) and bp384r1 (12) (padd is padd_chain's
+   library at one add: one build serves both); then the native signing
+   code (g++). Prints the seconds it
    took and ptxas's registers and stack for each library. The kernels on
    the 32-bit field layer at N = 8 words (fmul_chain and mxu_chain, on
    their bare fields' `Field32`, among them) and dma_gather must show 0
@@ -35,7 +36,7 @@
    projective coordinate of the others, segscan's `scanned` at its run-end
    rows only; each such hold prints its warps a scheduler): padd_chain at
    B = 8192, repeat 16, on secp256k1, P-256 and P-384; padd and pdouble at
-   B = 8192 on the ten curves, on the inputs of the single point
+   B = 8192 on the twelve curves, on the inputs of the single point
    operations of step 5; pow on the scalar field (e = n - 2) and the base
    field (e = p - 2) at B = 4096; ladder with glv=True, T = 2 at B = 4096,
    with glv=False, T = 1 (65 windows), and at the Straus MSM's shape (T =
@@ -62,7 +63,7 @@
    differencing (the extra work of a longer chain over its extra time), and
    a check of the chain's result against the host oracle. Then the single
    point operations `padd_points` and `pdouble_points` at B = 8192 on the
-   ten curves (the padd and pdouble kernels), 8 lanes each against the
+   twelve curves (the padd and pdouble kernels), 8 lanes each against the
    host oracle.
 6. P-256: steps 3-5 again on P-256 (sha256, not low-s; the verify's
    lincomb on the two-term ladder without GLV, 65 windows), with the same
@@ -73,10 +74,13 @@
    builds at their path's shapes, B = WIDE_COUNT lanes (pow on both
    fields, the verify's ladder on all the scalar's windows, 49 to 132,
    genmul on all the comb's), their twins those the workers computed on
-   the CPU; and on P-521, P-224, P-192, SM2, bign256, bp256t1 and bp384t1
-   steps 3-4 at WIDE_COUNT signatures, one run each (P-192 verify-only:
-   verify and derive); finv on both fields of bp256r1 and bp384r1 at
-   WIDE_COUNT (pow alone: their generic-a formulas are not ported).
+   the CPU; on P-521, P-224, P-192, SM2, bign256, bp256t1, bp384t1,
+   bp256r1 and bp384r1 steps 3-4 at WIDE_COUNT signatures, one run each
+   (P-192 verify-only: verify and derive); then SM2-DSA and bign-DSA
+   (`sm2_bign_phase`) at WIDE_COUNT messages on the sm2 and bign256
+   builds: SM2's (r, s) at the caller's k against the host formula, every
+   signature of both verified on the card, their vectors accepted and
+   their bit flips refused, with the launches each protocol made.
 7. MSM (`msm_phase`): 2^20 points P_i = a_i*G made on the card
    (`derive_public_batch`) and full-width k_i, from a seed. Holds the four
    Pippenger phase kernels against their twins on the card at the shapes
@@ -564,6 +568,121 @@ def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
     return out
 
 
+# the SM2 and bign vectors (copied in: the script imports nothing of
+# tpu_ecc): GB/T 32918.5 appendix A's key; an OpenSSL SM2 signature under a
+# custom identifier (sm2/tests/sm2dsa.rs:16-31); bign256/tests/dsa.rs:16-25
+SM2_GBT_D = 0x3945208F7B2144B13F36E38AC6D39F95889393692860B51A42FB81EF4DF7C5B8
+SM2_GBT_PUB = (0x09F9DF311E5421A150DD7D161E4BC5C672179FAD1833FC076BB08FF356F35020,
+               0xCCEA490CE26775A52DC6EA718CC1AA600AED05FBF35E084A6632F6072DA9AD13)
+SM2_SSL_PUB = (0x08D77AE04C01CC4C1104360DD8AF6B6F7DF334283D7C1A6AFD5652407B87BEE5,
+               0x014E2A57C36C150D16324DC664E31E6432359609C4E79847A5B161C8C7364C8A)
+SM2_SSL_ID = b"example@rustcrypto.org"
+SM2_SSL_SIG = (0xD1DCCCEDD9FB785E0F67C16B7C52901625C0B69DE9BCA2144ACC7BE713CAD2FC,
+               0xF7D1EAE6E3A157B36C65F672F738CA8B46298BF149A6510072C431B49CD88B1C)
+BIGN_PUB = bytes.fromhex(
+    "04D07F8590A8F77BF84F1EF10C6DE44CF5DDD52B4C9DE4CE3FE0799D1750561ABD"
+    "909AD9B92A4DB89A4A050959DA2E0C1926281B466D68913417C8E86103A6C67A")
+BIGN_SIG = bytes.fromhex(
+    "63F59C523FF1780851143114FFBC5C139BE81FF88F9D7F7FE209A6914198044C"
+    "2A41D37B8439AAB42983FDB04AC2C326")
+
+
+def _launched(label: str, fn, must_launch):
+    """fn() with the counts set to 0 just before and read just after:
+    (its result, the launches of ladder, genmul and pow, its seconds);
+    each of `must_launch` must have launched."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = {name: K.launches[name] for name in ("ladder", "genmul", "pow")}
+    if any(got[name] <= 0 for name in must_launch):
+        raise AssertionError(f"{label} did not launch {must_launch}: {got}")
+    return out, got, dt
+
+
+def sm2_bign_phase(count: int) -> dict:
+    """SM2-DSA and bign-DSA on the card, on the sm2 and bign256 builds,
+    `count` keys and messages from a seed. SM2: e = SM3(Z_A || M) under
+    the keys derived on the card; sign_batch at the caller's k equal, lane
+    by lane, to the host formula r = (e + x1) mod n, s = (1 + d)^-1 (k - r
+    d) mod n; verify_batch of every signature true. bign: sign_batch
+    (belt-hash nonces) and verify_batch of every signature under the
+    derived keys true. The vectors (GB/T 32918.5's key and its RFC 6979
+    signature, the OpenSSL signature under its identifier, bign256's
+    reference signature) accepted and, each with a bit flipped, refused.
+    Prints the launches of ladder, genmul and pow each protocol's sign and
+    verify made; returns them."""
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.protocols import bign, sm2
+    from tpu_ecc_torch.utils import ec_host as H
+    from tpu_ecc_torch.utils.bigint import be_bytes_to_int
+
+    out = {}
+    c = get_curve("sm2")
+    n = c.n
+    rng = np.random.default_rng(41)
+    ds, ks = ([int.from_bytes(rng.bytes(40), "big") % (n - 1) + 1 for _ in range(count)]
+              for _ in range(2))
+    msgs = [rng.bytes(int(rng.integers(0, 200))) for _ in range(count)]
+    pubs = SM.derive_public_batch(c, ds)
+    es = [be_bytes_to_int(e) for e in sm2.hash_msg_batch(c, pubs, msgs)]
+    sigs, sign_l, sign_s = _launched("SM2 sign_batch", lambda: sm2.sign_batch(c, ds, es, k_ints=ks),
+                                     ("genmul", "pow"))
+    G = H.aff_generator(c)
+    for i, (d, e, k) in enumerate(zip(ds, es, ks)):
+        r = (e + H.aff_mul(c, k, G)[0]) % n
+        if sigs[i] != (r, pow(1 + d, -1, n) * (k - r * d) % n):
+            raise AssertionError(f"SM2 sign_batch lane {i} disagrees with the host formula")
+    ok, verify_l, verify_s = _launched("SM2 verify_batch",
+                                       lambda: sm2.verify_batch(c, pubs, es, sigs),
+                                       ("ladder", "pow"))
+    if ok != [True] * count:
+        raise AssertionError("an SM2 signature of sign_batch fails verify_batch")
+    sk = sm2.SigningKey(c, SM2_GBT_D)
+    if sk.public_point() != SM2_GBT_PUB:
+        raise AssertionError("SM2: the GB/T 32918.5 key's public point is wrong")
+    r, s = sk.sign(b"message digest")
+    vk, ssl = sk.verifying_key(), sm2.VerifyingKey(c, SM2_SSL_PUB, ident=SM2_SSL_ID)
+    got = [vk.verify(b"message digest", r, s), vk.verify(b"message digest", r, s ^ 1),
+           ssl.verify(b"testing", *SM2_SSL_SIG),
+           ssl.verify(b"testing", SM2_SSL_SIG[0] ^ 1, SM2_SSL_SIG[1])]
+    if got != [True, False, True, False]:
+        raise AssertionError(f"SM2 vectors: accepted/refused {got}")
+    out["sm2"] = {"sign": sign_l, "verify": verify_l}
+    print(f"SM2-DSA, {count} messages: (r, s) at the caller's k equal the host formula on "
+          f"every lane ({sign_s:.2f} s), all verify ({verify_s:.2f} s); the GB/T and OpenSSL "
+          f"vectors accepted, their bit flips refused; launches sign {sign_l}, verify "
+          f"{verify_l}")
+
+    c = get_curve("bign256")
+    ds = [int.from_bytes(rng.bytes(40), "big") % (c.n - 1) + 1 for _ in range(count)]
+    pubs = SM.derive_public_batch(c, ds)
+    sigs, sign_l, sign_s = _launched("bign sign_batch", lambda: bign.sign_batch(c, ds, msgs),
+                                     ("genmul", "pow"))
+    ok, verify_l, verify_s = _launched("bign verify_batch",
+                                       lambda: bign.verify_batch(c, pubs, msgs, sigs),
+                                       ("ladder", "pow"))
+    if ok != [True] * count:
+        raise AssertionError("a bign signature of sign_batch fails verify_batch")
+    bad = bytearray(BIGN_SIG)
+    bad[5] ^= 1
+    vk = bign.VerifyingKey.from_sec1_bytes(BIGN_PUB)
+    got = [vk.verify(b"testing", BIGN_SIG), vk.verify(b"testing", bytes(bad))]
+    if got != [True, False]:
+        raise AssertionError(f"bign vector: accepted/refused {got}")
+    out["bign"] = {"sign": sign_l, "verify": verify_l}
+    print(f"bign-DSA, {count} messages: signed on the card ({sign_s:.2f} s), all verify on the "
+          f"card ({verify_s:.2f} s); the reference vector accepted, its bit flip refused; "
+          f"launches sign {sign_l}, verify {verify_l}")
+    return out
+
+
 def chain_phase(curve, a_l, b_l, a_pts, b_pts):
     """Step 5 on `curve`: padd_chain adds/s at B = POINT_B, repeat 16, by
     chain-length differencing (best of 3), and 8 lanes of the result held
@@ -778,21 +897,23 @@ def probes(hold, fields, dev) -> dict:
 P384_KERNELS = K256_KERNELS          # P-384's path: all ten (the MSM's four too)
 P384_RUNS = 3                        # its runs of each entry point (no claim rests on them)
 P384_MSM_POINTS = 1 << 16
-WIDE_CURVES = ("p521", "p224", "p192", "sm2", "bign256", "bp256t1", "bp384t1")
+WIDE_CURVES = ("p521", "p224", "p192", "sm2", "bign256", "bp256t1", "bp384t1", "bp256r1",
+               "bp384r1")
 WIDE_KERNELS = ("pow", "ladder", "genmul", "padd", "pdouble")
-FIELD_CURVES = ("bp256r1", "bp384r1")    # pow alone: the generic-a formulas are not ported
 WIDE_COUNT = 256       # the new curves' ECDSA batch: their core calls' lanes and their holds'
 TWIN_WORKERS = 4       # processes that compute the new curves' twins on the CPU
-SASS_WIDE = {("p384", "ladder"), ("p384", "pow"), ("p521", "ladder"), ("p521", "pow")}
-"""The wide builds whose SASS loop bodies phase 1 prints."""
+SASS_WIDE = {("p384", "ladder"), ("p384", "pow"), ("p521", "ladder"), ("p521", "pow"),
+             *((c, k) for c in ("bp256t1", "bp256r1") for k in ("padd", "ladder", "genmul"))}
+"""The wide builds whose SASS loop bodies phase 1 prints: P-384's and
+P-521's, and bp256r1's point kernels beside their a = -3 twins on bp256t1's
+field."""
 
 
 def wide_targets(get_curve) -> list:
-    """The builds of the eleventh slice: P-384's path, the five kernels of
-    each new a = 0 / a = -3 curve, pow for the r1 curves."""
+    """The builds of the other curves: P-384's path, and the five kernels of
+    each of WIDE_CURVES (a = -3, and the generic a of the r1 curves)."""
     return ([(get_curve("p384"), n) for n in P384_KERNELS]
-            + [(get_curve(c), n) for c in WIDE_CURVES for n in WIDE_KERNELS]
-            + [(get_curve(c), "pow") for c in FIELD_CURVES])
+            + [(get_curve(c), n) for c in WIDE_CURVES for n in WIDE_KERNELS])
 
 
 def _twin(plain: str, args: tuple, kw: dict) -> tuple:
@@ -968,30 +1089,6 @@ def run_holds(hold, holds) -> None:
     torch.cuda.synchronize()
 
 
-def field_only_path(curve, dev) -> dict:
-    """The card path of a curve whose formulas the layer lacks: `finv` on
-    both fields of WIDE_COUNT elements through the field layer's entry
-    point (the pow kernel), each against Python, the counts set to 0 just
-    before and read just after. Returns the pow launches."""
-    from tpu_ecc_torch.ops import fe as F
-    from tpu_ecc_torch.ops import kernels as K
-
-    rng = np.random.default_rng(17)
-    torch.cuda.synchronize()
-    K.reset_launches()
-    for spec in (curve.field, curve.scalar):
-        xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p
-              for _ in range(WIDE_COUNT)]
-        got = F.fe_to_ints(F.finv(F.fe_from_ints(spec, xs, dev)))
-        if got != [pow(x, -1, spec.p) if x else 0 for x in xs]:
-            raise AssertionError(f"finv on {spec.name} disagrees with Python")
-    torch.cuda.synchronize()
-    if K.launches["pow"] != 2:
-        raise AssertionError(f"finv on {curve.name} launched pow {K.launches['pow']} times")
-    print(f"finv, {curve.name}, both fields, {WIDE_COUNT}: equal to Python; pow launches 2")
-    return {"pow": K.launches["pow"]}
-
-
 def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) -> dict:
     """Step 7 on curve c: N points P_i = a_i*G made on the card
     (derive_public_batch) and full-width k_i, from `seed`. Holds the four
@@ -1088,7 +1185,7 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) 
          lambda: K.horner_plain(c, s_all, MSM_W), 5, c=c, B=1, compare=coord_diff(c),
          nw=nwin, w=MSM_W)
     thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
-                 / clock_hz for d in K.designs("horner")}
+                 / clock_hz for d in K.designs("horner", c)}
     hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
     print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
         f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
@@ -1162,7 +1259,7 @@ def make_hold(rows: dict, clock_hz: float, default_curve):
         ms = _time_ms(kern, reps)
         lib_ms = None if library is None else _time_ms(library, reps)
         by_design, split = {}, None
-        for design in K.designs(name):
+        for design in K.designs(name, c):
             ops, nbytes = K.work(name, c, outs_k[0].shape[-1] if B is None else B,
                                  design=design, **work)
             by_design[design] = (nbytes / PEAK_BYTES_PER_S, op_seconds(ops, clock_hz))
@@ -1256,7 +1353,7 @@ def run(pool) -> int:
           f"made meanwhile in {twins_s[0]:.1f} s): {list(K256_KERNELS)} for secp256k1, "
           f"{list(P256_KERNELS)} for p256, {[row_name(n, t) for t, n in probe_targets]} for "
           f"the probes, {list(P384_KERNELS)} for p384, {list(WIDE_KERNELS)} for "
-          f"{list(WIDE_CURVES)}, pow for {list(FIELD_CURVES)}")
+          f"{list(WIDE_CURVES)}")
     for (cname, name), rep in reports.items():
         print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
     print("the 32-bit layer's kernels and dma_gather: ptxas, and the loop bodies in SASS "
@@ -1310,8 +1407,6 @@ def run(pool) -> int:
     t10 = time.perf_counter()
     wide_holds = {c.name: curve_holds(c, WIDE_COUNT, dev, ("pow", "ladder", "genmul"), pool)
                   for c in wide_curves}
-    wide_holds.update({n: curve_holds(get_curve(n), WIDE_COUNT, dev, ("pow",), pool)
-                       for n in FIELD_CURVES})
     wide_s = time.perf_counter() - t10
     torch.cuda.synchronize()
 
@@ -1343,7 +1438,7 @@ def run(pool) -> int:
     del wide_holds
     pool.shutdown()
     wide = {c.name: ecdsa_phases(c, WIDE_COUNT, 1, 1) for c in wide_curves}
-    fields_only = {n: field_only_path(get_curve(n), dev) for n in FIELD_CURVES}
+    sm2_bign_phase(WIDE_COUNT)
     wide_s += time.perf_counter() - t10
 
     # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
@@ -1389,7 +1484,6 @@ def run(pool) -> int:
                    for name in ("segscan", "fixup", "bucket_reduce", "horner")},
                 **{(c, name): single[c.name][name] for c in point_curves
                    for name in ("padd", "pdouble")},
-                **{(get_curve(n), "pow"): fields_only[n]["pow"] for n in FIELD_CURVES},
                 **probe_launches}
     kernels = []
     for (c, name), count in launches.items():

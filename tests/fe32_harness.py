@@ -4,9 +4,6 @@ tpu_ecc_torch/csrc/fe32.cuh and point32.cuh, built with g++ at -O0 against a
 curve's generated header (kfe.fe32_header), that runs the field operations,
 the boundary converters and the kernels' per-lane bodies on uint32 arrays
 from stdin; and the helpers that make its inputs and read its outputs.
-
-With HARNESS_FIELDS_ONLY (a curve whose formulas the layer lacks, whose
-header holds its two fields alone) it has the field modes and pow only.
 """
 
 import pathlib
@@ -87,17 +84,15 @@ static int run_field(const char* m, size_t n, char** argv) {
     else if (!strcmp(m, "neg")) r = neg<T>(a);
     else if (!strcmp(m, "sqr")) r = sqr<T>(a);
     else if (!strcmp(m, "mul_small")) r = mul_small<T>(a, (uint32_t)atoi(argv[3]));
-#ifndef HARNESS_FIELDS_ONLY
     else if (!strcmp(m, "mul_b")) r = mul_b<C>(a);
+    else if (!strcmp(m, "mul_a")) r = mul_a<C>(a);
     else if (!strcmp(m, "mul_beta")) r = mul_beta<C>(a);
-#endif
     else return 3;
     for (size_t i = 0; i < N; ++i) out[l * N + i] = r.w[i];
   }
   wr(out);
   return 0;
 }
-#ifndef HARNESS_FIELDS_ONLY
 // ladder_probe variant K: bases [3, NL, B], mag, neg [nw, 2, B] -> out;
 // blocks of TL lanes share a table buffer, as the kernel's shared memory
 template <int K>
@@ -109,13 +104,11 @@ static void run_probe(size_t n, int nw, size_t TL) {
                             (uint32_t)TL, nw, (int)n, (int)l);
   wr(out);
 }
-#endif
 // harness <mode> <lanes> [args]: uint32 arrays in on stdin, out on stdout
 int main(int argc, char** argv) {
   if (argc < 3) return 2;
   const char* m = argv[1];
   const size_t n = (size_t)atoi(argv[2]);
-#ifndef HARNESS_FIELDS_ONLY
   const size_t N = C::N, NL = C::NL, PN = 3 * C::NL;
   if (!strcmp(m, "chain")) {  // chain B repeat: a, b [3, NL, B] -> out
     const int repeat = atoi(argv[3]);
@@ -234,7 +227,6 @@ int main(int argc, char** argv) {
     wr(out);
     return 0;
   }
-#endif
   if (!strcmp(m, "pow")) {  // pow B field ndig TL
     const int field = atoi(argv[3]), ndig = atoi(argv[4]);
     const size_t TL = (size_t)atoi(argv[5]);
@@ -248,16 +240,16 @@ int main(int argc, char** argv) {
 """
 
 
-def compile_harness(cname: str, d: pathlib.Path, fields_only: bool = False):
+def compile_harness(cname: str, d: pathlib.Path):
     """Start g++ on the harness for curve `cname` in directory d (-O0).
     Returns (the executable's path, the g++ process)."""
     gxx = shutil.which("g++")
     d.mkdir(parents=True, exist_ok=True)
-    (d / "kfe_fe32.cuh").write_text(kfe.fe32_header(get_curve(cname), fields_only=fields_only))
+    (d / "kfe_fe32.cuh").write_text(kfe.fe32_header(get_curve(cname)))
     (d / "harness.cpp").write_text(_HARNESS)
     exe = d / "harness"
     cmd = [gxx, "-O0", "-std=c++17", "-I", str(d), "-I", kernels.CSRC, "-o", str(exe),
-           str(d / "harness.cpp")] + (["-DHARNESS_FIELDS_ONLY"] if fields_only else [])
+           str(d / "harness.cpp")]
     return exe, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 

@@ -12,14 +12,15 @@ from tpu_ecc.ops import scalarmul as JSM
 from tpu_ecc.protocols import ecdsa as JE
 
 
-def plain_formulas(inputs):
-    """One jitted program: P-256's mixed add and P-384's add and doubling,
-    on steady limbs. inputs: {case: (curve name, a [3, n, B], b [3, n, B])}
-    -> {case: point limbs uint32 [3, n, B]} (b's x and y are the mixed
-    add's affine operand)."""
+def plain_formulas(inputs, eager=False):
+    """The add, mixed add or doubling of each case, on steady limbs, in one
+    jitted program, or op by op when eager (a few seconds a curve against
+    half a minute or more of compiling). inputs: {case: (curve name,
+    a [3, n, B], b [3, n, B])}, the case's name ending in its operation ->
+    {case: point limbs uint32 [3, n, B]} (b's x and y are the mixed add's
+    affine operand)."""
     curves = {case: get_curve(name) for case, (name, _, _) in inputs.items()}
 
-    @jax.jit
     def run(arrays):
         out = {}
         for case, (a, b) in arrays.items():
@@ -35,7 +36,12 @@ def plain_formulas(inputs):
             out[case] = JP.point_limbs(JP.steady(r))
         return out
 
-    res = run({case: (a, b) for case, (_, a, b) in inputs.items()})
+    arrays = {case: (a, b) for case, (_, a, b) in inputs.items()}
+    if eager:
+        with jax.disable_jit():
+            res = run(arrays)
+    else:
+        res = jax.jit(run)(arrays)
     return {k: np.asarray(v) for k, v in res.items()}
 
 

@@ -624,7 +624,9 @@ def test_fe32_counts_and_constants(cname):
     endomorphism, and the domain maps compose to the identity; Scalar32's
     (the scalar field, Montgomery) N0, one and maps against Python ints,
     and its field count has CIOS's N0 multiply; a squaring is counted at
-    the N(N+1)/2 products it needs, the reduction as a multiply's."""
+    the N(N+1)/2 products it needs, the reduction as a multiply's; the
+    Brainpool r1 curves' generic formulas multiply by 3b and a in the
+    domain, and count more products than their t1 twins' a = -3 ones."""
     curve = get_curve(cname)
     k = kfe.fe32_constants(curve)
     p = curve.p
@@ -662,13 +664,14 @@ def test_fe32_counts_and_constants(cname):
     assert set(shapes) == set(kernels.FE32_KERNELS) - set(kernels.FIELD_KERNELS)
     for name, kw in shapes.items():
         ops = {d: kernels.work(name, curve, 64, design=d, **kw)[0]
-               for d in kernels.designs(name)}
+               for d in kernels.designs(name, curve)}
         assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values()), name
     for spec in (curve.field, curve.scalar):     # the probes' chains, on each field
         for name in kernels.FIELD_KERNELS:
             if name == "mxu_chain" and spec.kind != "mont":
                 continue
-            ops = {d: kernels.work(name, spec, 64, design=d)[0] for d in kernels.designs(name)}
+            ops = {d: kernels.work(name, spec, 64, design=d)[0]
+                   for d in kernels.designs(name, spec)}
             assert 0 < sum(ops["fe32"].values()) < sum(ops["kfe"].values()), (name, spec)
     c = kfe.fe32_counts(curve)
     assert sum(c["pdouble"].values()) < sum(c["padd_mixed"].values()) < sum(c["padd"].values())
@@ -678,29 +681,50 @@ def test_fe32_counts_and_constants(cname):
     assert cn["mul"]["imad"] == cn["sqr"]["imad"] == N   # CIOS's m = t0 N0, once a word
     for counts in (c, cn):                 # a squaring's N(N+1)/2 products against N^2
         assert counts["sqr"]["wide"] == counts["mul"]["wide"] - N * (N - 1) // 2
-    with pytest.raises(NotImplementedError):
-        kfe.fe32_constants(get_curve("bp256r1"))
+    for r1, t1 in (("bp256r1", "bp256t1"), ("bp384r1", "bp384t1")):
+        gen = get_curve(r1)                 # generic a: 3b and a, in the domain
+        kg = kfe.fe32_constants(gen)
+        R = 1 << (32 * kg["N"])
+        assert kg["AGEN"] and not kg["A0"] and kg["BSMALL"] == 0 and kg["MONT"]
+        assert sum(w << (32 * i) for i, w in enumerate(kg["bmul"])) == 3 * gen.b * R % gen.p
+        assert sum(w << (32 * i) for i, w in enumerate(kg["amul"])) == gen.a * R % gen.p
+        cg, ct = kfe.fe32_counts(gen), kfe.fe32_counts(get_curve(t1))
+        assert cg["mul_a"] == cg["mul"] == ct["mul"]    # one field: the same multiply
+        for fn in kfe.FE32_POINT_FNS:       # RCB 1-3 multiply more than 4-6
+            assert cg[fn]["wide"] > ct[fn]["wide"]
+        # the 13-bit generator has no generic formulas: its design drops out
+        # of a point kernel's bound, not of pow's
+        assert not kfe.has_formulas(gen) and kfe.has_formulas(get_curve(t1))
+        assert "padd" not in kernels.op_counts(gen) and "fp_mul" in kernels.op_counts(gen)
+        assert kernels.designs("ladder", gen) == ("fe32",)
+        assert kernels.designs("pow", gen) == kernels.designs("ladder", get_curve(t1))
 
 
 def test_padd_count_follows_point32(tmp_path, monkeypatch):
     """The point formulas' field operations in the fe32 count are read from
     point32.cuh: RCB's 12 multiplies and 2 by b in both adds, 11 and 2 in
     both mixed adds, 8 and 1 (a = 0) or 11 and 2 (a = -3) in the
-    doublings, and an edit of the header moves the count."""
+    doublings; the generic a's add 12, 3 by a and 2 by 3b, its mixed add
+    and doubling 11, 3 and 2; and an edit of the header moves the count."""
     ops = kfe.fe32_point_ops
-    assert ops("padd", "a0") == {"mul": 12, "mul_b": 2, "add": 14, "sub": 5}
-    assert ops("padd", "a_minus3") == {"mul": 12, "mul_b": 2, "add": 20, "sub": 9}
-    assert ops("padd_mixed", "a0") == {"mul": 11, "mul_b": 2, "add": 10, "sub": 3}
-    assert ops("padd_mixed", "a_minus3") == {"mul": 11, "mul_b": 2, "add": 16, "sub": 7}
-    assert ops("pdouble", "a0") == {"mul": 8, "mul_b": 1, "add": 8, "sub": 1}
-    assert ops("pdouble", "a_minus3") == {"mul": 11, "mul_b": 2, "add": 15, "sub": 6}
+    assert ops("padd", "a0") == {"mul": 12, "mul_a": 0, "mul_b": 2, "add": 14, "sub": 5}
+    assert ops("padd", "a_minus3") == {"mul": 12, "mul_a": 0, "mul_b": 2, "add": 20, "sub": 9}
+    assert ops("padd", "generic") == {"mul": 12, "mul_a": 3, "mul_b": 2, "add": 17, "sub": 6}
+    assert ops("padd_mixed", "a0") == {"mul": 11, "mul_a": 0, "mul_b": 2, "add": 10, "sub": 3}
+    assert ops("padd_mixed", "a_minus3") == {"mul": 11, "mul_a": 0, "mul_b": 2, "add": 16,
+                                             "sub": 7}
+    assert ops("padd_mixed", "generic") == {"mul": 11, "mul_a": 3, "mul_b": 2, "add": 13,
+                                            "sub": 4}
+    assert ops("pdouble", "a0") == {"mul": 8, "mul_a": 0, "mul_b": 1, "add": 8, "sub": 1}
+    assert ops("pdouble", "a_minus3") == {"mul": 11, "mul_a": 0, "mul_b": 2, "add": 15, "sub": 6}
+    assert ops("pdouble", "generic") == {"mul": 11, "mul_a": 3, "mul_b": 2, "add": 12, "sub": 3}
     text = pathlib.Path(kfe._POINT32).read_text()
     edited = tmp_path / "point32.cuh"
     edited.write_text(text.replace("  X3 = sub<C>(t2, X3);\n",
                                    "  X3 = sub<C>(t2, mul<C>(X3, X3));\n", 1))
     monkeypatch.setattr(kfe, "_POINT32", str(edited))
-    assert ops("padd", "a0") == {"mul": 13, "mul_b": 2, "add": 14, "sub": 5}
-    assert ops("padd", "a_minus3")["mul"] == 12
+    assert ops("padd", "a0") == {"mul": 13, "mul_a": 0, "mul_b": 2, "add": 14, "sub": 5}
+    assert ops("padd", "a_minus3")["mul"] == ops("padd", "generic")["mul"] == 12
     assert ops("padd_mixed", "a0")["mul"] == 11
 
 

@@ -3,8 +3,8 @@ curve's own word count: P-192 (N = 6), P-224 (7), SM2 and bign256 (8),
 P-384 (12) and P-521 (17, the solinas field with its fold at p's top bit
 2^521, the scalar field on the Montgomery load that does not fold through
 F), and the Brainpool curves (8 and 12, the Montgomery load mont(lo, to32) +
-mont(to32h, h)); bp256r1 and bp384r1 with their two fields alone (their
-generic-a formulas are not on the layer). One g++ build at -O0 of the host
+mont(to32h, h)), the r1 curves on the generic-a formulas (RCB Algorithms
+1-3, a and 3b as full multiplies). One g++ build at -O0 of the host
 harness (tests/fe32_harness.py) per curve, four at a time.
 
 Inputs are made from a numpy seed (and the host oracle's points). Tolerance:
@@ -13,10 +13,10 @@ equal Python ints, with rows across the whole 13-bit range (Brainpool's top
 word near 2^17 and 2^19, P-521's values near 2^533 and 2^540); the add, the
 mixed add and the doubling equal, coordinate by coordinate mod p, the
 port's plain formulas and the host oracle, and for p384 and p521
-tpu_ecc.ops.points' (one jitted program per curve, in a niced worker
-process); the pow body equals `fpow_plain` (at a 64-bit exponent) and
+tpu_ecc.ops.points' (op by op, in a niced worker process); the pow body equals `fpow_plain` (at a 64-bit exponent) and
 Python's pow (at p - 2, and (p + 1) / 4 where p = 3 mod 4) on both fields;
-the ladder and genmul bodies equal their twins on p384 and p521; the port's
+the ladder and genmul bodies equal their twins and the host oracle on
+p384, p521 and the two generic-a curves; the port's
 plain field layer equals tpu_ecc.ops.fe limb for limb on p192, p224, p384
 (both fields), p521 and the two t1 curves.
 
@@ -47,9 +47,10 @@ from tpu_ecc_torch.ops import scalarmul as SM
 from tpu_ecc_torch.utils import ec_host as H
 from tpu_ecc_torch.utils.bigint import ints_to_limbs_np
 
-POINT_CURVES = ("p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1", "bp384t1")
-FIELD_CURVES = ("bp256r1", "bp384r1")            # their two fields alone
-CURVES = POINT_CURVES + FIELD_CURVES
+CURVES = ("p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1", "bp384t1",
+                "bp256r1", "bp384r1")
+GENERIC_CURVES = ("bp256r1", "bp384r1")          # the generic-a formulas
+BODY_CURVES = ["p384", "p521", *GENERIC_CURVES]   # the ladder and genmul bodies
 B = 16
 REFERENCE_FIELDS = [("p192", "field"), ("p224", "field"), ("p384", "field"),
                     ("p384", "scalar"), ("p521", "field"), ("bp256t1", "field"),
@@ -83,27 +84,24 @@ def _field_inputs():
 @pytest.fixture(scope="module")
 def built(tmp_path_factory):
     """{curve name: harness runner}, and tpu_ecc's references: the g++
-    builds (four at a time) while three niced workers compile tpu_ecc's
-    programs."""
+    builds (four at a time) while two niced workers run tpu_ecc's
+    programs: the field operations compiled, the formulas op by op."""
     if shutil.which("g++") is None:
         pytest.skip("no g++")
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"),
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"),
         initializer=os.nice, initargs=(10,))
     plain = _plain_inputs()
     fields = _field_inputs()
-    refs = {
-        "p384": pool.submit(p256_reference.plain_formulas,
-                            {k: v for k, v in plain.items() if k.startswith("p384")}),
-        "p521": pool.submit(p256_reference.plain_formulas,
-                            {k: v for k, v in plain.items() if k.startswith("p521")}),
-        "fields": pool.submit(fe32_wide_reference.field_ops, fields),
-    }
+    refs = {"fields": pool.submit(fe32_wide_reference.field_ops, fields)}
+    for name in ("p384", "p521"):
+        refs[name] = pool.submit(p256_reference.plain_formulas,
+                                 {k: v for k, v in plain.items() if k.startswith(name)},
+                                 eager=True)
     runners, todo = {}, list(CURVES)
     while todo:
         batch, todo = todo[:4], todo[4:]
-        procs = {c: compile_harness(c, tmp_path_factory.mktemp(f"fe32-{c}"), c in FIELD_CURVES)
-                 for c in batch}
+        procs = {c: compile_harness(c, tmp_path_factory.mktemp(f"fe32-{c}")) for c in batch}
         for c, (exe, proc) in procs.items():
             out, _ = proc.communicate()
             assert proc.returncode == 0, out.decode()
@@ -143,8 +141,9 @@ def test_layer_takes_both_fields_at_the_curves_word_count(cname):
     """Both fields fit at the curve's own N; the constants are the field's
     (p, F, the fold bit for P-521's base field, the Montgomery load where
     reduce_top cannot take a row, with to32h = F to32); the header builds
-    Curve32 (the base field alone for the r1 curves, whose generic
-    formulas raise) and Scalar32 at N; and a narrower N is refused."""
+    the whole Curve32 (the r1 curves' with AGEN, a and 3b in the domain)
+    and Scalar32 at N, `pow`'s the base field alone; and a narrower N is
+    refused."""
     curve = get_curve(cname)
     N = WORDS[cname]
     for spec in (curve.field, curve.scalar):
@@ -163,17 +162,12 @@ def test_layer_takes_both_fields_at_the_curves_word_count(cname):
             to32h = sum(w << (32 * i) for i, w in enumerate(k["to32h"]))
             assert to32h == W % spec.p * to32 % spec.p
     assert kfe.fe32_fits(curve.field, N - 1).startswith(curve.field.name)
-    header = kfe.fe32_header(curve, fields_only=cname in FIELD_CURVES)
+    header = kfe.fe32_header(curve)
     assert header.count(f"static constexpr int N = {N};") == 2
-    if cname in FIELD_CURVES:
-        with pytest.raises(NotImplementedError, match="generic formulas"):
-            kfe.fe32_header(curve)
-        with pytest.raises(NotImplementedError, match="generic formulas"):
-            kernels._header("ladder", curve)
-        assert "struct Curve32" in kernels._header("pow", curve)
-    else:
-        assert "BSMALL" in header
-        assert kernels._header("padd", curve) == header
+    assert "BSMALL" in header and kernels._header("ladder", curve) == header
+    generic = str(cname in GENERIC_CURVES).lower()
+    assert f"static constexpr bool AGEN = {generic};" in header
+    assert "AGEN" not in kernels._header("pow", curve)
 
 
 def test_ladder_lanes_follow_the_word_count():
@@ -194,9 +188,9 @@ def test_ladder_lanes_follow_the_word_count():
 @pytest.mark.parametrize("cname", CURVES)
 def test_field_ops_equal_ints(built, cname, field):
     """add, sub, neg, mul, sqr on canonical words, and mul_small by 21
-    where reduce_top takes it and, on the base field of a curve with
-    formulas, mul_b: against Python ints (the Montgomery product carries
-    R32^-1)."""
+    where reduce_top takes it and, on the base field, mul_b (by b for a =
+    -3, by 3b for the generic a) and mul_a (by a): against Python ints
+    (the Montgomery product carries R32^-1)."""
     run = built[0][cname]
     spec = _spec(cname, field)
     p, N = spec.p, kfe.fe32_words(spec)
@@ -208,9 +202,11 @@ def test_field_ops_equal_ints(built, cname, field):
     if kfe.fe32_small_fits(spec, 21):
         want["mul_small"] = lambda x, y: 21 * x
     curve = get_curve(cname)
-    if field == "fp" and cname in POINT_CURVES:
-        b_plain = curve.b % p                         # a = -3 on every curve here
+    if field == "fp":
+        generic = cname in GENERIC_CURVES             # else a = -3
+        b_plain = (3 * curve.b if generic else curve.b) % p
         want["mul_b"] = lambda x, y: b_plain * x
+        want["mul_a"] = lambda x, y: curve.a * x
     assert (cname == "p521" and field == "fp") <= ("mul_small" in want)
     for op, fn in want.items():
         arrays = [_to_words(a, N)] + ([_to_words(b, N)] if op in ("add", "sub", "mul") else [])
@@ -270,7 +266,7 @@ def _formula_inputs(curve):
 
 
 @pytest.mark.parametrize("op", ["padd", "pdouble", "padd_mixed"])
-@pytest.mark.parametrize("cname", POINT_CURVES)
+@pytest.mark.parametrize("cname", CURVES)
 def test_point_formulas_equal_plain_and_oracle(built, cname, op):
     """One add (the chain body at repeat 1), doubling or mixed add: O + O,
     P + O, O + P, P + P, P + (-P) and random pairs, canonical, each
@@ -355,7 +351,7 @@ def test_pow_body_equals_plain(built, cname, field):
             assert [out[i] for i in steady] == list(_limb_ints(want.numpy(), spec.limb_bits, 0) % p)
 
 
-@pytest.mark.parametrize("cname", ["p384", "p521"])
+@pytest.mark.parametrize("cname", BODY_CURVES)
 def test_ladder_body_equals_plain(built, cname):
     """ladder_lane at T = 2 without GLV on 24-bit scalars (6 windows, lane
     0's scalars 0, lane 1's 1), blocks of 4 lanes sharing the tables,
@@ -385,7 +381,7 @@ def test_ladder_body_equals_plain(built, cname):
         for i in range(B)]
 
 
-@pytest.mark.parametrize("cname", ["p384", "p521"])
+@pytest.mark.parametrize("cname", BODY_CURVES)
 def test_genmul_body_equals_plain(built, cname):
     """genmul_table (the prologue, by 5 threads) and genmul_lane on the
     comb's rows and all of signed_digits' windows, k = 0, 1, n - 1 and

@@ -44,9 +44,11 @@ def k256():
 
 
 CURVES = ["secp256k1", "p256"]      # a = 0 (solinas field), a = -3 (Montgomery)
-# every curve with a = 0 or a = -3: the layer at N = 6 (p192), 7 (p224), 8,
-# 12 (p384, bp384t1) and 17 (p521)
-POINT_CURVES = CURVES + ["p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1", "bp384t1"]
+# every curve: the layer at N = 6 (p192), 7 (p224), 8, 12 (p384, bp384t1,
+# bp384r1) and 17 (p521); a = 0, a = -3 and the generic a (the r1 curves)
+GENERIC_CURVES = ["bp256r1", "bp384r1"]
+POINT_CURVES = CURVES + ["p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1",
+                         "bp384t1"] + GENERIC_CURVES
 WIDE_CURVES = POINT_CURVES[2:]
 
 
@@ -340,13 +342,12 @@ def test_msm_on_the_card_equals_host(dev, k256, n_points):
     assert all(kernels.launches[name] > 0 for name in used)
 
 
-@pytest.mark.parametrize("name", WIDE_CURVES + ["bp256r1", "bp384r1"])
+@pytest.mark.parametrize("name", WIDE_CURVES)
 def test_wide_builds_match_plain(dev, name):
     """Each build of the curves the layer takes at their own word count
     against its twin, by canonical values mod p: pow on both fields at e =
-    p - 2; for the curves with a = -3 formulas also the ladder (T = 2
-    without GLV, 3 windows) and genmul (the first 12 windows of the
-    comb)."""
+    p - 2, the ladder (T = 2 without GLV, 3 windows) and genmul (the
+    first 12 windows of the comb)."""
     from tpu_ecc_torch.ops import scalarmul as SM
 
     curve = get_curve(name)
@@ -359,8 +360,6 @@ def test_wide_builds_match_plain(dev, name):
         want = kernels.fpow_plain(spec, x, spec.p - 2)
         assert torch.equal(F.fcanonical(F.fe_steady(spec, out.to(torch.int64))).limbs,
                            F.fcanonical(F.fe_steady(spec, want)).limbs)
-    if name not in WIDE_CURVES:
-        return
     bases, mag, neg = _random_ladder(curve, 2, 2, 3, B, dev, 50)
     out = kernels.ladder(curve, bases, mag, neg)
     torch.cuda.synchronize()
@@ -374,26 +373,43 @@ def test_wide_builds_match_plain(dev, name):
     _same_mod_p(curve, out, kernels.genmul_plain(curve, tbl, mag, neg))
 
 
-@pytest.mark.parametrize("name", ["bp256r1", "bp384r1"])
-def test_generic_curves_point_kernels_raise(dev, name):
-    """The r1 curves' generic a has no formulas on the layer (nor in the
-    plain layer): the ladder and genmul raise NotImplementedError and
-    launch nothing."""
+@pytest.mark.parametrize("name", GENERIC_CURVES)
+def test_generic_curves_point_kernels_match_plain(dev, name):
+    """The r1 curves' generic-a formulas (RCB Algorithms 1-3) on the layer:
+    padd and pdouble, the verify's ladder (T = 2 without GLV, on all the
+    scalar's windows) and genmul (every window of the comb, k = 0 and n - 1
+    among the scalars) each equal their twin mod p and launch their kernel
+    once; derive_public_batch on the card equals the host oracle."""
     from tpu_ecc_torch.ops import scalarmul as SM
 
     curve = get_curve(name)
-    n = curve.field.n_limbs
-    kernels.reset_launches()
-    bases = torch.zeros((1, 3, n, 4), dtype=torch.int64, device=dev)
-    dig = torch.zeros((2, 1, 4), dtype=torch.int64, device=dev)
-    with pytest.raises(NotImplementedError):
-        kernels.ladder(curve, bases, dig, dig)
-    with pytest.raises(NotImplementedError):
-        kernels.genmul(curve, torch.zeros((2, kernels.TBL, 2, n), dtype=torch.int64, device=dev),
-                       dig[:, 0], dig[:, 0])
-    with pytest.raises(NotImplementedError):
-        SM.derive_public_batch(curve, [1, 2])
-    assert sum(kernels.launches.values()) == 0
+    rng = np.random.default_rng(8)
+    a, b = _points(curve, 1, B, dev), _points(curve, 2, B, dev)
+    ks = [SM.pack_scalars(curve, [int.from_bytes(rng.bytes(curve.scalar_bytes), "big")
+                                  for _ in range(B)], dev) for _ in range(2)]
+    bases, mag, neg = SM.ladder_inputs([(P.generator(curve, (B,), dev), ks[0]),
+                                        (P.point_from_limbs(curve, b), ks[1])])
+    kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(curve.scalar_bytes), "big")
+                             for _ in range(B - 2)]
+    mag_g, neg_g = SM.signed_digits(curve, SM.pack_scalars(curve, kg, dev))
+    mag_g, neg_g, tbl = mag_g.flip(0), neg_g.flip(0), SM._gen_table(curve, dev)
+    runs = {"padd": (lambda: kernels.padd(curve, a, b), lambda: kernels.padd_plain(curve, a, b)),
+            "pdouble": (lambda: kernels.pdouble(curve, a),
+                        lambda: kernels.pdouble_plain(curve, a)),
+            "ladder": (lambda: kernels.ladder(curve, bases, mag, neg),
+                       lambda: kernels.ladder_plain(curve, bases, mag, neg)),
+            "genmul": (lambda: kernels.genmul(curve, tbl, mag_g, neg_g),
+                       lambda: kernels.genmul_plain(curve, tbl, mag_g, neg_g))}
+    for kname, (kern, plain) in runs.items():
+        kernels.reset_launches()
+        out = kern()
+        torch.cuda.synchronize()
+        assert kernels.launches[kname] == 1 and sum(kernels.launches.values()) == 1, kname
+        _same_mod_p(curve, out, plain())
+    ds = [int.from_bytes(rng.bytes(curve.scalar_bytes), "big") % (curve.n - 1) + 1
+          for _ in range(8)]
+    G = ec_host.aff_generator(curve)
+    assert SM.derive_public_batch(curve, ds) == [ec_host.aff_mul(curve, d, G) for d in ds]
 
 
 def test_ladder_straus_shape_on_p521(dev):

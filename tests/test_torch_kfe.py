@@ -124,7 +124,10 @@ def test_instruction_count_fuses():
 
 
 def test_formulas_not_ported_raise():
-    """The generic-a formulas (the brainpool r1 curves) are not ported."""
+    """The 13-bit generator, which no kernel builds from (its counts are the
+    "kfe" design of the bounds), keeps two strategies: the generic-a
+    formulas of the brainpool r1 curves are on the plain and 32-bit
+    layers only."""
     with pytest.raises(NotImplementedError):
         kfe.kernel_header(get_curve("bp256r1"), ["padd"])
 

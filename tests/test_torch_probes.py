@@ -533,7 +533,7 @@ def test_mxu_bound_counts_the_function(name):
     B = 64
     ops = kernels.work("mxu_chain", spec, B, design="fe32")[0]
     assert ops["int8"] == 2 * kernels.CHAIN * B * band
-    assert kernels.designs("mxu_chain") == ("kfe", "fe32", "cios")
+    assert kernels.designs("mxu_chain", spec) == ("kfe", "fe32", "cios")
     assert (kernels.work("mxu_chain", spec, B, design="cios")
             == kernels.work("fmul_chain", spec, B, design="fe32"))
     step, macs = kernels.mxu_step_counts(kernels.mxu_shape(spec))

@@ -35,7 +35,11 @@
 //
 // ptxas (-Xptxas -v, sm_90a): secp256k1 255 and 228 registers (the
 // instances S = 0 and 32), P-256 254, 0 bytes of stack and spill;
-// chip_smoke.py prints them at each build and fails on a spill.
+// chip_smoke.py prints them at each build and fails on a spill at N = 8
+// words. On a curve with the generic a (the Brainpool r1 curves: 17
+// multiplies an add, 16 a doubling) the build runs ptxas at -O1
+// (kernels.DENSE_CHAIN_PTXAS): at -O3 bp256r1's holds 168 registers and
+// spills 32 B, at -O1 148 and none (tools/bench_blocks.py ladder).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -6,10 +6,11 @@
 // either of a curve's two fields).
 //
 // The formulas are RCB Algorithms 7, 8, 9 (a = 0, C::A0: the add, the mixed
-// add, the doubling) and 4, 5, 6 (a = -3), in the statement order of
-// ops/kfe.py `_kadd_a0`, `_kadd_mixed_a0`, `_kdouble_a0` and their a = -3
-// twins, which is the Pallas bodies' own (tpu_ecc/ops/pallas_kernels.py:
-// 46-225). Every field operation is exact mod p, so each projective
+// add, the doubling), 1, 2, 3 (generic a, C::AGEN: the Brainpool r1 curves,
+// whose a is a full-width constant) and 4, 5, 6 (a = -3, the rest), chosen
+// at compile time, each in the statement order of the Pallas bodies
+// (tpu_ecc/ops/pallas_kernels.py: 56-311) and of ops/points.py's plain
+// formulas. Every field operation is exact mod p, so each projective
 // coordinate equals, mod p, the 13-bit kernels' and tpu_ecc's; the limbs
 // differ, because every value here is canonical (fe32.cuh) and the rows are
 // stored canonical.
@@ -33,8 +34,9 @@ FE32_FN Pt<C> identity() {  // (0 : 1 : 0)
   return Pt<C>{zero<C>(), one<C>(), zero<C>()};
 }
 
-// t * b3 (a = 0) or t * b (a = -3): a small multiply where the constant is
-// small, else a full multiply by the constant in this layer's domain
+// t * b3 (a = 0, generic a) or t * b (a = -3): a small multiply where the
+// constant is small, else a full multiply by the constant in this layer's
+// domain
 template <class C>
 FE32_FN E<C> mul_b(const E<C>& t) {
   if constexpr (C::BSMALL != 0u) {
@@ -42,6 +44,15 @@ FE32_FN E<C> mul_b(const E<C>& t) {
   } else {
     return mul<C>(bmul_const<C>(), t);
   }
+}
+
+// t * a (generic a): a full multiply by a in this layer's domain (C::amul;
+// the Brainpool r1 curves' a is as wide as p)
+template <class C>
+FE32_FN E<C> mul_a(const E<C>& t) {
+  E<C> a;
+  FE32_UNROLL for (int i = 0; i < C::N; ++i) a.w[i] = C::amul(i);
+  return mul<C>(a, t);
 }
 
 // RCB 2015 Algorithm 7 (a = 0)
@@ -105,10 +116,42 @@ FE32_FN Pt<C> padd_am3(const Pt<C>& p, const Pt<C>& q) {
   return Pt<C>{X3, Y3, Z3};
 }
 
+// RCB 2015 Algorithm 1 (generic a)
+template <class C>
+FE32_FN Pt<C> padd_gen(const Pt<C>& p, const Pt<C>& q) {
+  E<C> t0 = mul<C>(p.x, q.x);
+  E<C> t1 = mul<C>(p.y, q.y);
+  E<C> t2 = mul<C>(p.z, q.z);
+  E<C> t3 = mul<C>(add<C>(p.x, p.y), add<C>(q.x, q.y));
+  t3 = sub<C>(t3, add<C>(t0, t1));
+  E<C> t4 = mul<C>(add<C>(p.x, p.z), add<C>(q.x, q.z));
+  t4 = sub<C>(t4, add<C>(t0, t2));
+  E<C> t5 = mul<C>(add<C>(p.y, p.z), add<C>(q.y, q.z));
+  t5 = sub<C>(t5, add<C>(t1, t2));
+  E<C> Z3 = mul_a<C>(t4);
+  E<C> X3 = mul_b<C>(t2);
+  Z3 = add<C>(X3, Z3);
+  X3 = sub<C>(t1, Z3);
+  Z3 = add<C>(t1, Z3);
+  E<C> Y3 = mul<C>(X3, Z3);
+  t1 = add<C>(add<C>(t0, t0), t0);
+  t2 = mul_a<C>(t2);
+  t4 = mul_b<C>(t4);
+  t1 = add<C>(t1, t2);
+  t2 = mul_a<C>(sub<C>(t0, t2));
+  t4 = add<C>(t4, t2);
+  Y3 = add<C>(Y3, mul<C>(t1, t4));
+  X3 = sub<C>(mul<C>(t3, X3), mul<C>(t5, t4));
+  Z3 = add<C>(mul<C>(t5, Z3), mul<C>(t3, t1));
+  return Pt<C>{X3, Y3, Z3};
+}
+
 template <class C>
 FE32_FN Pt<C> padd(const Pt<C>& p, const Pt<C>& q) {
   if constexpr (C::A0) {
     return padd_a0<C>(p, q);
+  } else if constexpr (C::AGEN) {
+    return padd_gen<C>(p, q);
   } else {
     return padd_am3<C>(p, q);
   }
@@ -169,10 +212,39 @@ FE32_FN Pt<C> padd_mixed_am3(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
   return Pt<C>{X3, Y3, Z3};
 }
 
+// RCB 2015 Algorithm 2 (generic a): p + (x2 : y2 : 1); q must not be O
+template <class C>
+FE32_FN Pt<C> padd_mixed_gen(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
+  E<C> t0 = mul<C>(p.x, x2);
+  E<C> t1 = mul<C>(p.y, y2);
+  E<C> t3 = mul<C>(add<C>(x2, y2), add<C>(p.x, p.y));
+  t3 = sub<C>(t3, add<C>(t0, t1));
+  E<C> t4 = add<C>(mul<C>(x2, p.z), p.x);
+  E<C> t5 = add<C>(mul<C>(y2, p.z), p.y);
+  E<C> Z3 = mul_a<C>(t4);
+  E<C> X3 = mul_b<C>(p.z);
+  Z3 = add<C>(X3, Z3);
+  X3 = sub<C>(t1, Z3);
+  Z3 = add<C>(t1, Z3);
+  E<C> Y3 = mul<C>(X3, Z3);
+  t1 = add<C>(add<C>(t0, t0), t0);
+  E<C> t2 = mul_a<C>(p.z);
+  t4 = mul_b<C>(t4);
+  t1 = add<C>(t1, t2);
+  t2 = mul_a<C>(sub<C>(t0, t2));
+  t4 = add<C>(t4, t2);
+  Y3 = add<C>(Y3, mul<C>(t1, t4));
+  X3 = sub<C>(mul<C>(t3, X3), mul<C>(t5, t4));
+  Z3 = add<C>(mul<C>(t5, Z3), mul<C>(t3, t1));
+  return Pt<C>{X3, Y3, Z3};
+}
+
 template <class C>
 FE32_FN Pt<C> padd_mixed(const Pt<C>& p, const E<C>& x2, const E<C>& y2) {
   if constexpr (C::A0) {
     return padd_mixed_a0<C>(p, x2, y2);
+  } else if constexpr (C::AGEN) {
+    return padd_mixed_gen<C>(p, x2, y2);
   } else {
     return padd_mixed_am3<C>(p, x2, y2);
   }
@@ -238,10 +310,45 @@ FE32_FN Pt<C> pdouble_am3(const Pt<C>& p) {
   return Pt<C>{X3, Y3, Z3};
 }
 
+// RCB 2015 Algorithm 3 (generic a)
+template <class C>
+FE32_FN Pt<C> pdouble_gen(const Pt<C>& p) {
+  E<C> t0 = mul<C>(p.x, p.x);
+  E<C> t1 = mul<C>(p.y, p.y);
+  E<C> t2 = mul<C>(p.z, p.z);
+  E<C> t3 = mul<C>(p.x, p.y);
+  t3 = add<C>(t3, t3);
+  E<C> Z3 = mul<C>(p.x, p.z);
+  Z3 = add<C>(Z3, Z3);
+  E<C> X3 = mul_a<C>(Z3);
+  E<C> Y3 = mul_b<C>(t2);
+  Y3 = add<C>(X3, Y3);
+  X3 = sub<C>(t1, Y3);
+  Y3 = add<C>(t1, Y3);
+  Y3 = mul<C>(X3, Y3);
+  X3 = mul<C>(t3, X3);
+  Z3 = mul_b<C>(Z3);
+  t2 = mul_a<C>(t2);
+  t3 = mul_a<C>(sub<C>(t0, t2));
+  t3 = add<C>(t3, Z3);
+  t0 = add<C>(add<C>(add<C>(t0, t0), t0), t2);
+  t0 = mul<C>(t0, t3);
+  Y3 = add<C>(Y3, t0);
+  t2 = mul<C>(p.y, p.z);
+  t2 = add<C>(t2, t2);
+  X3 = sub<C>(X3, mul<C>(t2, t3));
+  Z3 = mul<C>(t2, t1);
+  Z3 = add<C>(Z3, Z3);
+  Z3 = add<C>(Z3, Z3);
+  return Pt<C>{X3, Y3, Z3};
+}
+
 template <class C>
 FE32_FN Pt<C> pdouble(const Pt<C>& p) {
   if constexpr (C::A0) {
     return pdouble_a0<C>(p);
+  } else if constexpr (C::AGEN) {
+    return pdouble_gen<C>(p);
   } else {
     return pdouble_am3<C>(p);
   }

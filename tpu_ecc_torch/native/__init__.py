@@ -1,6 +1,7 @@
-"""Native host code for the signing path: batched RFC 6979 nonces and
-batched SHA-256 and SM3 (fastcrypt.cpp, the port's own copy of the JAX
-package's file, unchanged).
+"""Native host code for the signing path: batched RFC 6979 nonces (HMAC
+with SHA-256, SM3 or belt-hash), batched SHA-256 and SM3 over messages of
+one length, and batched belt-hash over messages of any lengths
+(fastcrypt.cpp, the port's own copy of the JAX package's file, unchanged).
 
 The library is built with g++ at first use into build/native/ beside the
 package, named by a hash of the source, as the CUDA kernels are
@@ -24,7 +25,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "native")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
-_RFC6979 = {"sha256": "rfc6979_k_sha256_batch", "sm3": "rfc6979_k_sm3_batch"}
+_RFC6979 = {"sha256": "rfc6979_k_sha256_batch", "sm3": "rfc6979_k_sm3_batch",
+            "belt": "rfc6979_k_belt_batch"}
 
 
 def library_path() -> str:
@@ -63,12 +65,16 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ctypes.c_char_p, ctypes.c_int32,
                                        ctypes.c_char_p, ctypes.c_int32]
         getattr(lib, name).restype = None
+    lib.belt_hash_batch.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                                    ctypes.c_char_p, ctypes.c_int32]
+    lib.belt_hash_batch.restype = None
     return lib
 
 
 def rfc6979_k_batch(hashname: str, q: int, xs, h1s) -> list[int]:
-    """RFC 6979 k for each (x, h1) with HMAC-`hashname` ("sha256" or "sm3"):
-    q of 256 bits, secrets xs in [1, q), 32-byte digests h1s."""
+    """RFC 6979 k for each (x, h1) with HMAC-`hashname` ("sha256", "sm3" or
+    "belt", belt-hash): q of 256 bits, secrets xs in [1, q), 32-byte
+    digests h1s."""
     if hashname not in _RFC6979:
         raise ValueError(f"no native RFC 6979 for {hashname}")
     if q.bit_length() != 256:
@@ -105,3 +111,20 @@ def sha256_batch(msgs) -> list[bytes]:
 def sm3_batch(msgs) -> list[bytes]:
     """SM3 of each message; all messages have one length."""
     return _hash_batch("sm3_batch", msgs)
+
+
+def belt_hash_batch(msgs) -> list[bytes]:
+    """belt-hash (STB 34.101.31) of each message; the messages may differ in
+    length (one buffer, delimited by B + 1 offsets)."""
+    msgs = list(msgs)
+    B = len(msgs)
+    offs = (ctypes.c_int64 * (B + 1))()
+    pos = 0
+    for i, m in enumerate(msgs):
+        offs[i] = pos
+        pos += len(m)
+    offs[B] = pos
+    out = ctypes.create_string_buffer(32 * B)
+    _lib().belt_hash_batch(b"".join(msgs), offs, out, B)
+    raw = out.raw
+    return [raw[32 * b:32 * b + 32] for b in range(B)]

@@ -37,12 +37,12 @@ generated header: a ring of `cp.async.bulk` row copies in each warp's
 shared memory, GATHER_WARPS warps a block, at most GATHER_ROWS rows a
 warp). For a curve the header is `kfe.fe32_header`: the curve's
 `Curve32`, with the GLV beta where the curve has an endomorphism, and its
-scalar field's `Scalar32`, on which `pow` runs for field 1. The point
-kernels build for every curve with a = 0 or a = -3; `pow`, which needs
-the two fields alone, also for bp256r1 and bp384r1, whose generic-a
-formulas the layer lacks (their point kernels raise NotImplementedError,
-as their plain formulas do). For a bare field (FIELD_KERNELS: the
-probes' `fmul_chain` and `mxu_chain`) the header is
+scalar field's `Scalar32`, on which `pow` runs for field 1. Every kernel
+builds for every registered curve: the layer holds the RCB formulas for
+a = 0, a = -3 and a generic a (the Brainpool r1 curves, whose a is a full
+multiply by a constant); `pow`, which needs the two fields alone, takes
+a header of the two fields (`fe32_header(fields_only=True)`). For a bare
+field (FIELD_KERNELS: the probes' `fmul_chain` and `mxu_chain`) the header is
 `kfe.fe32_field_header`'s `Field32`. `ladder` and `ladder_probe` build
 their tables [O, Q, .., 8Q] in shared memory (`ladder_lanes`; the probe's
 one table a lane at PROBE_LANES lanes a block), `genmul` converts the
@@ -105,13 +105,17 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DENSE_CHAIN_PTXAS = "-O1"
-"""ptxas's optimisation level for csrc/padd_chain.cu (the body of both
-`padd_chain` and `padd`, the chain at one add) on a curve whose base field
-rows load by two Montgomery products (kfe's MLOAD: the Brainpool fields,
-every word of p dense, N0 != 1): at ptxas's default -O3 bp256t1's inlined
-add spills 28 B, the one build at N = 8 words that does; at -O1 it has
-none and runs as fast. Every other source and curve builds at -O3, where
-secp256k1's chain runs 7.5% faster than at -O1 (PERF.md, tools/bench_blocks.py)."""
+"""ptxas's optimisation level for the two builds at N = 8 words that spill
+at ptxas's default -O3 and not at -O1, where they run as fast or faster:
+csrc/padd_chain.cu (the body of both `padd_chain` and `padd`, the chain at
+one add) on a curve whose base field rows load by two Montgomery products
+(kfe's MLOAD: the Brainpool fields, every word of p dense, N0 != 1), where
+bp256t1's inlined add spills 28 B at -O3; and csrc/ladder.cu on a curve
+with the generic a (the Brainpool r1 curves), where bp256r1's ladder
+holds 168 registers and spills 32 B at -O3, and at -O1 takes 148 and none
+(bp384r1: 40 B against none). Every other source and curve builds at
+-O3, where secp256k1's chain runs 7.5% faster than at -O1 (PERF.md,
+tools/bench_blocks.py padd_chain and ladder)."""
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, C entry point, its argtypes before the launch count and
@@ -236,9 +240,11 @@ def _header(name: str, target) -> str:
 def _flags(src_file: str, target) -> tuple:
     """nvcc's flags for a source and target: NVCC_FLAGS, and
     DENSE_CHAIN_PTXAS for padd_chain.cu on a curve whose base field loads
-    by the Montgomery load."""
-    dense = (src_file == "padd_chain.cu" and isinstance(target, CurveSpec)
-             and kfe.fe32_field_constants(target.field)["MLOAD"])
+    by the Montgomery load and for ladder.cu on a curve with the generic a."""
+    curve = target if isinstance(target, CurveSpec) else None
+    dense = curve is not None and (
+        (src_file == "padd_chain.cu" and kfe.fe32_field_constants(curve.field)["MLOAD"])
+        or (src_file == "ladder.cu" and curve.strategy == "generic"))
     return NVCC_FLAGS + (("-Xptxas", DENSE_CHAIN_PTXAS) if dense else ())
 
 
@@ -481,9 +487,8 @@ def fpow(spec: F.FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     the curve's fields, the table x..x^15 in shared memory) returns
     canonical limbs: the same element as the twin's, equal mod p. The
     kernel is built for both fields of the curve, at the curve's word
-    count: every registered curve's two fields fit the layer
-    (`kfe.fe32_fits`), the Brainpool r1 curves' too, since `pow` runs no
-    point formula."""
+    count (every registered curve's two fields fit the layer,
+    `kfe.fe32_fits`), from a header of the two fields alone."""
     if x.device.type == "cpu":
         return fpow_plain(spec, x, e)
     curve, field = _curve_of(spec)
@@ -1086,12 +1091,12 @@ def ladder_probe_plain(curve: CurveSpec, bases: torch.Tensor, mag: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def op_counts(target) -> dict:
     """The 32-bit integer instructions each generated function of `target`
-    (a curve or a field spec) needs at least, by class, as the generator
-    counts them (kfe.INSTRUCTION_CLASSES); for a curve with the generic a,
-    whose formulas the generator lacks, its two fields' functions alone."""
-    generic = not isinstance(target, F.FieldSpec) and target.strategy == "generic"
+    (a curve or a field spec) needs at least, by class, as the 13-bit
+    generator counts them (kfe.INSTRUCTION_CLASSES): the point formulas
+    where the generator has them (kfe.has_formulas), and both fields'
+    functions."""
     names = tuple(n for n in kfe.function_table(target)
-                  if not (generic and n in kfe.FE32_POINT_FNS))
+                  if n not in kfe.FE32_POINT_FNS or kfe.has_formulas(target))
     return kfe.kernel_header(target, names)[1]
 
 
@@ -1103,16 +1108,21 @@ def _total(*terms) -> dict:
     return {c: sum(k * cnt[c] for k, cnt in terms) for c in kfe.INSTRUCTION_CLASSES}
 
 
-def designs(name: str) -> tuple:
-    """The designs whose instruction counts `work` gives for kernel `name`:
-    the 13-bit generated code ("kfe", which no kernel runs any more) for
-    every kernel, the 32-bit layer ("fe32") for FE32_KERNELS, which run on
-    it, and for `mxu_chain` also "cios": the same chain by the layer's own
-    multiply, as `fmul_chain` runs it. A row's bound is the least of its
-    designs' times."""
+def designs(name: str, target) -> tuple:
+    """The designs whose instruction counts `work` gives for kernel `name`
+    on `target` (a curve or a field spec): the 13-bit generated code
+    ("kfe", which no kernel runs any more) wherever the generator has the
+    functions the kernel calls (every point kernel needs the curve's
+    formulas, kfe.has_formulas), the 32-bit layer ("fe32") for
+    FE32_KERNELS, which run on it, and for `mxu_chain` also "cios": the
+    same chain by the layer's own multiply, as `fmul_chain` runs it. A
+    row's bound is the least of its designs' times."""
     if name == "mxu_chain":
         return ("kfe", "fe32", "cios")
-    return ("kfe", "fe32") if name in FE32_KERNELS else ("kfe",)
+    if name not in FE32_KERNELS:
+        return ("kfe",)
+    points = isinstance(target, CurveSpec) and name != "pow"
+    return ("kfe", "fe32") if not points or kfe.has_formulas(target) else ("fe32",)
 
 
 def work(name: str, target, B: int, design: str = "kfe", **kw) -> tuple:

@@ -794,8 +794,14 @@ _KADD_MIXED = {"a0": _kadd_mixed_a0, "a_minus3": _kadd_mixed_am3}
 _KDOUBLE = {"a0": _kdouble_a0, "a_minus3": _kdouble_am3}
 
 
+def has_formulas(curve) -> bool:
+    """Whether this generator has `curve`'s point formulas: a = 0 and
+    a = -3. The generic a's are on the plain and 32-bit layers only."""
+    return curve.strategy in _KADD
+
+
 def _formula(table: dict, curve):
-    if curve.strategy not in table:
+    if not has_formulas(curve):
         raise NotImplementedError(
             f"{curve.name}: the {curve.strategy} formulas are not ported yet")
     return table[curve.strategy]
@@ -1091,24 +1097,24 @@ def _fe32_enc(spec: FieldSpec, N: int, v: int) -> int:
 def fe32_constants(curve) -> dict:
     """The constants of the 32-bit layer for `curve`, at its word count: its
     base field's (`fe32_field_constants`) and the curve's own, with the
-    carry analysis of csrc/fe32.cuh checked for them: the formula's b
-    multiplier in the domain (BSMALL where it fits mul_small), and the GLV
-    beta in the domain where the curve has an endomorphism (HAS_BETA).
-    Raises NotImplementedError for a curve whose formulas the layer lacks
-    (the generic a of bp256r1 and bp384r1: only a = 0 and a = -3 are
-    written) or whose field it cannot take."""
-    if curve.strategy not in ("a0", "a_minus3"):
-        raise NotImplementedError(
-            f"{curve.name}: the {curve.strategy} formulas (a = {curve.a:#x}) are not written "
-            "on the 32-bit layer, which has a = 0 and a = -3")
+    carry analysis of csrc/fe32.cuh checked for them: which formulas
+    csrc/point32.cuh runs (A0: a = 0, RCB Algorithms 7-9; AGEN: generic
+    a, Algorithms 1-3; neither: a = -3, Algorithms 4-6), the formula's b
+    multiplier in the domain (3b for a = 0 and generic a, b for a = -3;
+    BSMALL where it fits mul_small), a in the domain (`amul`, which only
+    the generic formulas multiply by), and the GLV beta in the domain
+    where the curve has an endomorphism (HAS_BETA). Raises
+    NotImplementedError for a field the layer cannot take."""
     f = curve.field
     k = fe32_field_constants(f)
     N, p = k["N"], f.p
-    b_plain = (3 * curve.b if curve.strategy == "a0" else curve.b) % p
+    b_plain = (curve.b if curve.strategy == "a_minus3" else 3 * curve.b) % p
     bsmall = b_plain if b_plain < (1 << 16) and fe32_small_fits(f, b_plain, N) else 0
     return {
-        **k, "A0": curve.strategy == "a0", "BSMALL": bsmall,
+        **k, "A0": curve.strategy == "a0", "AGEN": curve.strategy == "generic",
+        "BSMALL": bsmall,
         "bmul": _words(_fe32_enc(f, N, b_plain), N), "HAS_BETA": bool(curve.glv),
+        "amul": _words(_fe32_enc(f, N, curve.a), N),
         "beta": _words(_fe32_enc(f, N, curve.glv["beta"]) if curve.glv else 0, N),
     }
 
@@ -1129,11 +1135,12 @@ def _traits(name: str, k: dict) -> str:
     ints = "".join(f"  static constexpr int {n} = {k[n]};\n"
                    for n in ("N", "NL", "LB", "FW", "KB"))
     flags = "".join(f"  static constexpr bool {n} = {str(k[n]).lower()};\n"
-                    for n in has(("MONT", "MLOAD", "A0", "HAS_BETA")))
+                    for n in has(("MONT", "MLOAD", "A0", "AGEN", "HAS_BETA")))
     words = "".join(f"  static constexpr uint32_t {n} = 0x{k[n]:08x}u;\n"
                     for n in has(("N0", "BSMALL")))
     funcs = "".join(_word_function(n, k[n])
-                    for n in has(("p", "f", "one", "bmul", "beta", "to32", "to32h", "to13")))
+                    for n in has(("p", "f", "one", "bmul", "amul", "beta", "to32", "to32h",
+                                  "to13")))
     return f"struct {name} {{\n{ints}{flags}{words}{funcs}}};\n"
 
 
@@ -1199,24 +1206,27 @@ class _Tally:
 
 _POINT32 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "csrc", "point32.cuh")
-_FE32_CALL = re.compile(r"\b(mul_b|mul|add|sub)<C>\(")
-_FE32_SUFFIX = {"a0": "a0", "a_minus3": "am3"}
+_FE32_CALL = re.compile(r"\b(mul_a|mul_b|mul|add|sub)<C>\(")
+_FE32_SUFFIX = {"a0": "a0", "a_minus3": "am3", "generic": "gen"}
 FE32_POINT_FNS = ("padd", "padd_mixed", "pdouble")
 """The point formulas of csrc/point32.cuh, each with a body per strategy
-(`padd_a0`, `padd_am3`, ...)."""
+(`padd_a0`, `padd_am3`, `padd_gen`, ...)."""
 
 
 def fe32_point_ops(fn: str, strategy: str) -> dict:
-    """{mul, mul_b, add, sub: calls} in the body of the point formula `fn`
-    (FE32_POINT_FNS) for `strategy` (csrc/point32.cuh `<fn>_a0` or
-    `<fn>_am3`), read from the header."""
+    """{mul, mul_a, mul_b, add, sub: calls} in the body of the point
+    formula `fn` (FE32_POINT_FNS) for `strategy` (csrc/point32.cuh
+    `<fn>_a0`, `<fn>_am3` or `<fn>_gen`), read from the header. A multiply
+    by a (`mul_a`) is a full `mul` by a constant, as `mul_b` is where b
+    does not fit mul_small; each keeps its own class, so that the count
+    shows which constant a formula multiplies by."""
     name = f"{fn}_{_FE32_SUFFIX[strategy]}"
     with open(_POINT32) as fh:
         text = fh.read()
     body = re.search(r"FE32_FN Pt<C> %s\(.*?\) \{\n(.*?)\n\}" % name, text, re.S)
     if body is None:
         raise ValueError(f"{_POINT32}: no {name} body")
-    ops = dict.fromkeys(("mul", "mul_b", "add", "sub"), 0)
+    ops = dict.fromkeys(("mul", "mul_a", "mul_b", "add", "sub"), 0)
     for op in _FE32_CALL.findall(body.group(1)):
         ops[op] += 1
     return ops
@@ -1234,7 +1244,7 @@ def fe32_counts(target) -> dict:
     `_Tally.mac`), and one shift-add (LEA) per limb part packed or one
     funnel shift and one AND per limb unpacked. Returns {name: counts} for
     add, sub, neg, mul, sqr, load (a 13-bit element to the domain) and
-    store (back); for a curve also mul_b, mul_beta, cneg (y or p - y),
+    store (back); for a curve also mul_a, mul_b, mul_beta, cneg (y or p - y),
     pselect (a point's select), select_point and select_affine (an entry
     of 9 points or 9 affine points, a compare and a select of each word
     for each entry but the first), and the point formulas FE32_POINT_FNS."""
@@ -1373,7 +1383,7 @@ def fe32_counts(target) -> dict:
     fns = {"add": add, "sub": sub, "neg": sub, "mul": mul, "sqr": sqr, "load": load,
            "store": store}
     if curve is not None:
-        fns.update({"mul_b": mul_b, "mul_beta": mul, "cneg": cneg,
+        fns.update({"mul_a": mul, "mul_b": mul_b, "mul_beta": mul, "cneg": cneg,
                     "pselect": lambda t: t(alu=3 * N),
                     "select_point": lambda t: t(alu=8 * (1 + 3 * N)),
                     "select_affine": lambda t: t(alu=8 * (1 + 2 * N))})

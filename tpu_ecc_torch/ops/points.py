@@ -3,10 +3,10 @@
 Homogeneous projective coordinates (X : Y : Z), identity = (0 : 1 : 0), on
 int64 limb tensors — the torch port of tpu_ecc/ops/points.py, limb-equal with
 it. It carries the a = 0 formulas (RCB 2015 Algorithms 7/8/9, the secp256k1
-path, b3 = 21 as a small-constant multiply) and the a = -3 ones (Algorithms
+path, b3 = 21 as a small-constant multiply), the a = -3 ones (Algorithms
 4/5/6: P-256, P-384, P-521, P-224, SM2, bign256 and the brainpool t1 curves,
-b as a full field multiply); the generic-a strategy (the brainpool r1
-curves) raises NotImplementedError until its slice.
+b as a full field multiply) and the generic-a ones (Algorithms 1/2/3: the
+brainpool r1 curves, a and 3b as full field multiplies).
 
 The formulas are exception-free on prime-order short-Weierstrass curves, so
 identity and doubling cases need no branches. A point batch is three FE limb
@@ -204,6 +204,105 @@ def _b_mul(curve: CurveSpec, t: FE) -> FE:
     return F.fmul(F.fe_from_int(curve.field, curve.b, t.batch_shape, t.device), t)
 
 
+def _a_mul(curve: CurveSpec, t: FE) -> FE:
+    return F.fmul(F.fe_from_int(curve.field, curve.a, t.batch_shape, t.device), t)
+
+
+# ---------------------------------------------------------------------------
+# RCB 2015 Algorithms 1-3: generic a
+# ---------------------------------------------------------------------------
+
+def _add_generic(P: Point, Q: Point) -> Point:
+    c = P.curve
+    X1, Y1, Z1 = P.x, P.y, P.z
+    X2, Y2, Z2 = Q.x, Q.y, Q.z
+    t0 = X1 * X2
+    t1 = Y1 * Y2
+    t2 = Z1 * Z2
+    t3 = (X1 + Y1) * (X2 + Y2)
+    t3 = t3 - (t0 + t1)
+    t4 = (X1 + Z1) * (X2 + Z2)
+    t4 = t4 - (t0 + t2)
+    t5 = (Y1 + Z1) * (Y2 + Z2)
+    t5 = t5 - (t1 + t2)
+    Z3 = _a_mul(c, t4)
+    X3 = _b3_mul(c, t2)
+    Z3 = X3 + Z3
+    X3 = t1 - Z3
+    Z3 = t1 + Z3
+    Y3 = X3 * Z3
+    t1 = t0 + t0 + t0
+    t2 = _a_mul(c, t2)
+    t4 = _b3_mul(c, t4)
+    t1 = t1 + t2
+    t2 = _a_mul(c, t0 - t2)
+    t4 = t4 + t2
+    Y3 = Y3 + t1 * t4
+    X3 = t3 * X3 - t5 * t4
+    Z3 = t5 * Z3 + t3 * t1
+    return Point(X3, Y3, Z3, c)
+
+
+def _add_mixed_generic(P: Point, x2: FE, y2: FE) -> Point:
+    c = P.curve
+    X1, Y1, Z1 = P.x, P.y, P.z
+    t0 = X1 * x2
+    t1 = Y1 * y2
+    t3 = (x2 + y2) * (X1 + Y1)
+    t3 = t3 - (t0 + t1)
+    t4 = x2 * Z1 + X1
+    t5 = y2 * Z1 + Y1
+    Z3 = _a_mul(c, t4)
+    X3 = _b3_mul(c, Z1)
+    Z3 = X3 + Z3
+    X3 = t1 - Z3
+    Z3 = t1 + Z3
+    Y3 = X3 * Z3
+    t1 = t0 + t0 + t0
+    t2 = _a_mul(c, Z1)
+    t4 = _b3_mul(c, t4)
+    t1 = t1 + t2
+    t2 = _a_mul(c, t0 - t2)
+    t4 = t4 + t2
+    Y3 = Y3 + t1 * t4
+    X3 = t3 * X3 - t5 * t4
+    Z3 = t5 * Z3 + t3 * t1
+    return Point(X3, Y3, Z3, c)
+
+
+def _double_generic(P: Point) -> Point:
+    c = P.curve
+    X, Y, Z = P.x, P.y, P.z
+    t0 = X * X
+    t1 = Y * Y
+    t2 = Z * Z
+    t3 = X * Y
+    t3 = t3 + t3
+    Z3 = X * Z
+    Z3 = Z3 + Z3
+    X3 = _a_mul(c, Z3)
+    Y3 = _b3_mul(c, t2)
+    Y3 = X3 + Y3
+    X3 = t1 - Y3
+    Y3 = t1 + Y3
+    Y3 = X3 * Y3
+    X3 = t3 * X3
+    Z3 = _b3_mul(c, Z3)
+    t2 = _a_mul(c, t2)
+    t3 = _a_mul(c, t0 - t2)
+    t3 = t3 + Z3
+    t0 = t0 + t0 + t0 + t2
+    t0 = t0 * t3
+    Y3 = Y3 + t0
+    t2 = Y * Z
+    t2 = t2 + t2
+    X3 = X3 - t2 * t3
+    Z3 = t2 * t1
+    Z3 = Z3 + Z3
+    Z3 = Z3 + Z3
+    return Point(X3, Y3, Z3, c)
+
+
 # ---------------------------------------------------------------------------
 # RCB 2015 Algorithms 4-6: a = -3
 # ---------------------------------------------------------------------------
@@ -394,28 +493,22 @@ def _double_a0(P: Point) -> Point:
 # dispatch
 # ---------------------------------------------------------------------------
 
-_ADD = {"a0": _add_a0, "a_minus3": _add_am3}
-_ADD_MIXED = {"a0": _add_mixed_a0, "a_minus3": _add_mixed_am3}
-_DOUBLE = {"a0": _double_a0, "a_minus3": _double_am3}
-
-
-def _formula(table: dict, curve: CurveSpec):
-    if curve.strategy not in table:
-        raise NotImplementedError(
-            f"{curve.name}: the {curve.strategy} formulas are not ported yet")
-    return table[curve.strategy]
+_ADD = {"generic": _add_generic, "a_minus3": _add_am3, "a0": _add_a0}
+_ADD_MIXED = {"generic": _add_mixed_generic, "a_minus3": _add_mixed_am3,
+              "a0": _add_mixed_a0}
+_DOUBLE = {"generic": _double_generic, "a_minus3": _double_am3, "a0": _double_a0}
 
 
 def padd(P: Point, Q: Point) -> Point:
     """Complete projective addition (exception-free, batched)."""
     assert P.curve is Q.curve
-    return _formula(_ADD, P.curve)(P, Q)
+    return _ADD[P.curve.strategy](P, Q)
 
 
 def padd_mixed(P: Point, x2: FE, y2: FE, q_identity=None) -> Point:
     """Complete mixed addition with affine Q = (x2, y2); `q_identity` is an
     optional bool[*batch] mask selecting P where Q is the identity."""
-    out = _formula(_ADD_MIXED, P.curve)(P, x2, y2)
+    out = _ADD_MIXED[P.curve.strategy](P, x2, y2)
     if q_identity is not None:
         out = pselect(q_identity, P, out)
     return out
@@ -423,7 +516,7 @@ def padd_mixed(P: Point, x2: FE, y2: FE, q_identity=None) -> Point:
 
 def pdouble(P: Point) -> Point:
     """Exception-free doubling (batched)."""
-    return _formula(_DOUBLE, P.curve)(P)
+    return _DOUBLE[P.curve.strategy](P)
 
 
 def padd_chain(a: Point, b: Point, repeat: int) -> Point:

@@ -1,6 +1,6 @@
 """Block sizes of the kernels that take theirs from a macro, and the ptxas
-level of the point-add chain and of the field-multiply chain: registers,
-spills and time on the card.
+level of the point-add chain, of the generic-a curves' ladder and of the
+field-multiply chain: registers, spills and time on the card.
 
 csrc/bucket_reduce.cu, csrc/pow.cu, csrc/fixup.cu and csrc/ladder_probe.cu
 take their threads a block from BUCKET_THREADS, POW_THREADS, FIXUP_THREADS
@@ -10,8 +10,8 @@ most rows a warp gathers from GATHER_WARPS and GATHER_ROWS;
 and csrc/fmul_chain.cu its threads from FMUL_THREADS.
 This builds each named kernel in each of its forms (`forms`: 32, 64 and
 128 threads; for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows,
-nvcc -D<macro>=k; for padd_chain, whose source is also `padd`'s, ptxas
--O3 and -O1; for fmul_chain 32, 64 and 128 threads each at ptxas -O3 and
+nvcc -D<macro>=k; for padd_chain, whose source is also `padd`'s, and for
+ladder, ptxas -O3 and -O1; for fmul_chain 32, 64 and 128 threads each at ptxas -O3 and
 -O1; one process each, all started together), prints ptxas's
 registers and spills for each, holds each against its plain twin (by
 canonical values mod p; dma_gather exactly) at the main path's or the
@@ -30,6 +30,9 @@ by torch.profiler's device time of the kernel's launches:
     padd_chain     the five N = 8 curves (secp256k1, P-256, bp256t1, SM2,
                    bign256), B = 8192, repeat 16 (the headline) and repeat
                    1 (the launch of padd_points)
+    ladder         the generic-a curves bp256r1 and bp384r1, the verify's
+                   T = 2 without GLV on all the scalar's windows, B = 256
+                   (a core call of their smoke's ECDSA) and 4096
     fmul_chain     secp256k1's field, P-256's and k256mxu.fp (secp256k1's p
                    forced onto Montgomery), B = 8192 (bench_mxu_mul's)
 
@@ -40,7 +43,7 @@ events around back-to-back calls and by torch.profiler's device time of
 the calls' launches.
 
     python3 -m tpu_ecc_torch.tools.bench_blocks [bucket_reduce] [pow] [fixup]
-        [ladder_probe] [dma_gather] [padd_chain] [fmul_chain]
+        [ladder_probe] [dma_gather] [padd_chain] [ladder] [fmul_chain]
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..ops import fe as F
 from ..ops import kernels as K
 from ..ops import kfe
 from ..ops import points as P
+from ..ops import scalarmul as SM
 from ..utils import ec_host as H
 from . import bench_gather_probe, device_label, profile_ladder
 from .devtime import device_ms
@@ -68,7 +72,7 @@ MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIX
 SIZES = (32, 64, 128)
 GATHER_WARPS, GATHER_ROWS = (4, 8, 16), (32, 64, 128)
 PTXAS_LEVELS = ("-O3", "-O1")
-SWEPT = (*MACROS, "dma_gather", "padd_chain", "fmul_chain")
+SWEPT = (*MACROS, "dma_gather", "padd_chain", "ladder", "fmul_chain")
 CHAIN_B = 8192
 NBUCK, WINDOWS, LANES, ROWS = 8192, (8, 3), 8192, 128
 POW_B, LADDER_B = 4096, 4096
@@ -82,7 +86,7 @@ def forms(name: str) -> list:
     if name == "dma_gather":
         return [(f"{w} warps x {r} rows", (f"-DGATHER_WARPS={w}", f"-DGATHER_ROWS={r}"))
                 for w in GATHER_WARPS for r in GATHER_ROWS]
-    if name == "padd_chain":
+    if name in ("padd_chain", "ladder"):
         return [(f"ptxas {lv}", ("-Xptxas", lv)) for lv in PTXAS_LEVELS]
     if name == "fmul_chain":
         return [(f"{k} threads, ptxas {lv}", (f"-DFMUL_THREADS={k}", "-Xptxas", lv))
@@ -220,6 +224,19 @@ def cases(names, dev) -> list:
                 out.append(("padd_chain", c, f"{c.name} repeat {repeat}",
                             lambda c=c, a=a, b=b, r=repeat: K.padd_chain(c, a, b, r),
                             _canonical(c.field, K.padd_chain_plain(c, a, b, repeat)), c.field))
+    if "ladder" in names:
+        rng = np.random.default_rng(6)
+        for c in (get_curve("bp256r1"), get_curve("bp384r1")):
+            for b in (256, LADDER_B):
+                ks = [SM.pack_scalars(c, [int.from_bytes(rng.bytes(c.scalar_bytes), "big")
+                                          for _ in range(b)], dev) for _ in range(2)]
+                bases, mag, neg = SM.ladder_inputs(
+                    [(P.generator(c, (b,), dev), ks[0]),
+                     (P.point_from_limbs(c, _points(c, b, dev, 4)), ks[1])])
+                out.append(("ladder", c, f"{c.name} T=2 nw={mag.shape[0]} B={b}",
+                            lambda c=c, bases=bases, mag=mag, neg=neg: K.ladder(c, bases, mag,
+                                                                               neg),
+                            _canonical(c.field, K.ladder_plain(c, bases, mag, neg)), c.field))
     if "fmul_chain" in names:
         rng = np.random.default_rng(5)
         for spec in (k256.field, p256.field, F.make_field_spec("k256mxu.fp", k256.p, "mont")):
