@@ -81,6 +81,22 @@
    builds: SM2's (r, s) at the caller's k against the host formula, every
    signature of both verified on the card, their vectors accepted and
    their bit flips refused, with the launches each protocol made.
+11. Schnorr, ECDH and hash-to-curve (after step 10; vectors from
+   tests/vectors/bip340.json and rfc9380_h2c.json): BIP340 on secp256k1
+   (`schnorr_phase`: the sign vectors 0-3 byte for byte, the verify vectors
+   0-14 and a tampered signature; CHUNK random (d, msg, aux) signed
+   SIGN_RUNS times, the same bytes each run, SAMPLE lanes equal to the
+   pure-Python signer, all verified under `xonly_public_keys`, a quarter
+   tampered and refused exactly there); ECDH on secp256k1 and P-256
+   (`ecdh_phase`: CHUNK key pairs each, both sides agree, SAMPLE lanes
+   against the host oracle, off-curve, x >= p and d = n give None; the
+   secp256k1 call's ladder, GLV at T = 1, held against its twin); RFC
+   9380 hash-to-curve (`h2c_phase`: the four suites' vectors exactly,
+   CHUNK random messages on secp256k1 and P-256 with SAMPLE lanes against
+   device="cpu", pow at e = (p - 3)/4 held on P-384 and P-521 at B =
+   WIDE_COUNT). Every core call's launches of ladder, genmul and pow must
+   equal PROTOCOL_LAUNCHES. Prints each phase's seconds and each rate
+   (one run, host-bound).
 7. MSM (`msm_phase`): 2^20 points P_i = a_i*G made on the card
    (`derive_public_batch`) and full-width k_i, from a seed. Holds the four
    Pippenger phase kernels against their twins on the card at the shapes
@@ -680,6 +696,265 @@ def sm2_bign_phase(count: int) -> dict:
     print(f"bign-DSA, {count} messages: signed on the card ({sign_s:.2f} s), all verify on the "
           f"card ({verify_s:.2f} s); the reference vector accepted, its bit flip refused; "
           f"launches sign {sign_l}, verify {verify_l}")
+    return out
+
+
+# the launches of ladder, genmul and pow that one core call of each new
+# protocol makes (each batch is one chunk of CHUNK lanes)
+PROTOCOL_LAUNCHES = {
+    "schnorr sign": {"ladder": 0, "genmul": 2, "pow": 2},
+    "schnorr xonly": {"ladder": 0, "genmul": 1, "pow": 1},
+    "schnorr verify": {"ladder": 1, "genmul": 0, "pow": 2},
+    "ecdh": {"ladder": 1, "genmul": 0, "pow": 1},
+    "h2c secp256k1": {"ladder": 0, "genmul": 0, "pow": 7},
+    "h2c": {"ladder": 0, "genmul": 0, "pow": 5},
+}
+SIGN_RUNS = 3           # the Schnorr batch, signed this many times
+
+
+def load_vectors(name: str) -> dict:
+    """tests/vectors/<name> of the checkout that holds this script (the
+    BIP340 and RFC 9380 vectors; the script imports nothing of tpu_ecc or of
+    the JAX package's tests)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "vectors", name)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def bip340_sign_host(curve, d: int, msg: bytes, aux: bytes) -> bytes:
+    """BIP340's reference signing algorithm in pure Python on the host
+    oracle (hashlib and ec_host.aff_mul; variable-time: test data only)."""
+    import hashlib
+
+    from tpu_ecc_torch.utils import ec_host as H
+
+    def tagged(tag: str, data: bytes) -> bytes:
+        th = hashlib.sha256(tag.encode()).digest()
+        return hashlib.sha256(th + th + data).digest()
+
+    n, G = curve.n, H.aff_generator(curve)
+    px, py = H.aff_mul(curve, d, G)
+    d = n - d if py & 1 else d
+    t = d ^ int.from_bytes(tagged("BIP0340/aux", aux), "big")
+    pb = px.to_bytes(32, "big")
+    k = int.from_bytes(tagged("BIP0340/nonce", t.to_bytes(32, "big") + pb + msg), "big") % n
+    rx, ry = H.aff_mul(curve, k, G)
+    k = n - k if ry & 1 else k
+    rb = rx.to_bytes(32, "big")
+    e = int.from_bytes(tagged("BIP0340/challenge", rb + pb + msg), "big") % n
+    return rb + ((k + e * d) % n).to_bytes(32, "big")
+
+
+def _expect_launches(label: str, got: dict, key: str) -> None:
+    if got != PROTOCOL_LAUNCHES[key]:
+        raise AssertionError(f"{label} launched {got}, not {PROTOCOL_LAUNCHES[key]}")
+
+
+def schnorr_phase() -> dict:
+    """Step 11a, BIP340 on secp256k1 on the card: the sign vectors 0-3 byte
+    for byte; the verify vectors 0-14 and a tampered signature, each
+    boolean as the vector says; CHUNK random (d, msg, aux) from a seed
+    signed SIGN_RUNS times, the same bytes each run, a SAMPLE-lane sample
+    equal to the pure-Python signer (`bip340_sign_host`), every signature
+    verifying under `xonly_public_keys` and a quarter of them, tampered,
+    refused exactly there. Each core call's launches must equal
+    PROTOCOL_LAUNCHES. Returns the launches and rates."""
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.protocols import schnorr
+    from tpu_ecc_torch.utils import ec_host as H
+
+    c = get_curve("secp256k1")
+    n, G = c.n, H.aff_generator(c)
+    bip = load_vectors("bip340.json")
+    sv = bip["sign"]
+    ds = [int(v["seckey"], 16) for v in sv]
+    msgs = [bytes.fromhex(v["msg"]) for v in sv]
+    sigs = [bytes.fromhex(v["sig"]) for v in sv]
+    got = schnorr.sign_batch(c, ds, msgs, [bytes.fromhex(v["aux_rand"]) for v in sv])
+    if got != sigs:
+        raise AssertionError("Schnorr sign_batch differs from the BIP340 sign vectors")
+    bad = bytearray(sigs[0])
+    bad[-1] ^= 1
+    pxs = [H.aff_mul(c, d, G)[0] for d in ds] + [H.aff_mul(c, ds[0], G)[0]]
+    msgs, sigs = msgs + msgs[:1], sigs + [bytes(bad)]
+    expect = [True] * len(sv) + [False]
+    for v in bip["verify"]:
+        pxs.append(int(v["pubkey"], 16))
+        msgs.append(bytes.fromhex(v["msg"]))
+        sigs.append(bytes.fromhex(v["sig"]))
+        expect.append(v["valid"])
+    got = schnorr.verify_batch(c, pxs, msgs, sigs)
+    if got != expect:
+        raise AssertionError(f"Schnorr verify_batch on the BIP340 vectors: {got} != {expect}")
+
+    rng = np.random.default_rng(51)
+    ds = [int.from_bytes(rng.bytes(32), "big") % (n - 1) + 1 for _ in range(CHUNK)]
+    msgs = [rng.bytes(32) for _ in range(CHUNK)]
+    auxs = [rng.bytes(32) for _ in range(CHUNK)]
+    first, sign_s = None, []
+    for run in range(SIGN_RUNS):
+        sigs, sign_l, s = _launched("Schnorr sign_batch",
+                                    lambda: schnorr.sign_batch(c, ds, msgs, auxs), ("genmul", "pow"))
+        _expect_launches("Schnorr sign_batch", sign_l, "schnorr sign")
+        if first is None:
+            first = sigs
+        elif sigs != first:
+            raise AssertionError(f"Schnorr sign_batch run {run} differs from the first")
+        sign_s.append(s)
+    sample = [int(i) for i in rng.choice(CHUNK, SAMPLE, replace=False)]
+    for i in sample:
+        if first[i] != bip340_sign_host(c, ds[i], msgs[i], auxs[i]):
+            raise AssertionError(f"Schnorr sign_batch lane {i} disagrees with the host signer")
+    pks, xonly_l, xonly_s = _launched("xonly_public_keys",
+                                      lambda: schnorr.xonly_public_keys(c, ds), ("genmul", "pow"))
+    _expect_launches("xonly_public_keys", xonly_l, "schnorr xonly")
+    if any(pks[i] != H.aff_mul(c, ds[i], G)[0] for i in sample[:16]):
+        raise AssertionError("xonly_public_keys disagrees with the host oracle")
+    t_msgs, t_sigs, expect = list(msgs), list(first), []
+    for i in range(CHUNK):
+        expect.append(i % 4 != 3)
+        if i % 4 == 3:              # flip a bit of r, of s or of the message
+            kind = (i // 4) % 3
+            if kind == 2:
+                t_msgs[i] = bytes([msgs[i][0] ^ 1]) + msgs[i][1:]
+            else:
+                sig = bytearray(first[i])
+                sig[5 if kind == 0 else 40] ^= 4
+                t_sigs[i] = bytes(sig)
+    ok, verify_l, verify_s = _launched("Schnorr verify_batch",
+                                       lambda: schnorr.verify_batch(c, pks, t_msgs, t_sigs),
+                                       ("ladder", "pow"))
+    _expect_launches("Schnorr verify_batch", verify_l, "schnorr verify")
+    if ok != expect:
+        bad = [i for i, (g, x) in enumerate(zip(ok, expect)) if g != x]
+        raise AssertionError(f"Schnorr verify_batch wrong at {len(bad)} lanes, e.g. {bad[:8]}")
+    out = {"sign": sign_l, "xonly": xonly_l, "verify": verify_l,
+           "signs/s": [CHUNK / s for s in sign_s], "verifies/s": CHUNK / verify_s}
+    print(f"Schnorr (BIP340), secp256k1: sign vectors 0-3 byte-equal, verify vectors 0-14 and "
+          f"a tampered one as expected; {CHUNK} random lanes signed {SIGN_RUNS} times, the same "
+          f"bytes each run, {SAMPLE} sampled lanes equal the host signer; all verify under "
+          f"xonly_public_keys ({xonly_s:.3f} s), the {CHUNK // 4} tampered lanes refused; "
+          f"signs/s {[round(r, 1) for r in out['signs/s']]}, verifies/s "
+          f"{out['verifies/s']:.1f} (one run each, host-bound); launches sign {sign_l}, "
+          f"xonly {xonly_l}, verify {verify_l}")
+    return out
+
+
+def ecdh_phase(hold, dev) -> dict:
+    """Step 11b, ECDH on secp256k1 and P-256 on the card, CHUNK key pairs
+    from a seed each: both sides agree on every lane, a SAMPLE-lane sample
+    equals the host oracle's x((a*b mod n)*G), and off-curve, x >= p and d
+    = n lanes give None beside a good lane; EphemeralSecret and its
+    extract. The secp256k1 call's ladder (GLV, T = 1, a shape of its own)
+    is held against its twin on the card by canonical coordinates. Each
+    core call's launches must equal PROTOCOL_LAUNCHES."""
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.protocols import ecdh
+    from tpu_ecc_torch.utils import ec_host as H
+
+    rng = np.random.default_rng(52)
+    out = {}
+    for name in ("secp256k1", "p256"):
+        c = get_curve(name)
+        n, p, G = c.n, c.p, H.aff_generator(c)
+        da, db = ([int.from_bytes(rng.bytes(32), "big") % (n - 1) + 1 for _ in range(CHUNK)]
+                  for _ in range(2))
+        pa, pb = SM.derive_public_batch(c, da), SM.derive_public_batch(c, db)
+        sab, ab_l, ab_s = _launched(f"ECDH {name}", lambda: ecdh.diffie_hellman_batch(c, da, pb),
+                                    ("ladder", "pow"))
+        _expect_launches(f"ECDH {name}", ab_l, "ecdh")
+        sba = ecdh.diffie_hellman_batch(c, db, pa)
+        if None in sab or sab != sba:
+            raise AssertionError(f"ECDH {name}: the two sides disagree")
+        for i in rng.choice(CHUNK, SAMPLE, replace=False):
+            if sab[i] != H.aff_mul(c, da[i] * db[i] % n, G)[0]:
+                raise AssertionError(f"ECDH {name} lane {i} disagrees with the host oracle")
+        good = H.aff_mul(c, 7, G)
+        peers = [good, (good[0], (good[1] + 1) % p), (good[0] + p, good[1]), good]
+        got = ecdh.diffie_hellman_batch(c, [da[0]] * 3 + [n], peers)
+        if got != [H.aff_mul(c, da[0] * 7 % n, G)[0], None, None, None]:
+            raise AssertionError(f"ECDH {name}: the adversarial lanes gave {got}")
+        a = ecdh.EphemeralSecret(c, da[1])
+        sa = a.diffie_hellman(pb[1])
+        if (a.public_key() != pa[1] or sa.raw_secret_bytes() != sab[1].to_bytes(32, "big")
+                or len(sa.extract()) != 32):
+            raise AssertionError(f"ECDH {name}: EphemeralSecret disagrees with the batch")
+        print(f"ECDH, {name}, {CHUNK} key pairs: both sides agree, {SAMPLE} sampled lanes equal "
+              f"the host oracle, off-curve, x >= p and d = n give None; {CHUNK / ab_s:.1f} "
+              f"agreements/s (one run, host-bound); launches {ab_l}")
+        out[name] = {"launches": ab_l, "rate": CHUNK / ab_s}
+        if name == "secp256k1":
+            Q = P.from_affine_ints(c, [q[0] for q in pb], [q[1] for q in pb], dev)
+            bases, mag, neg = SM.ladder_inputs([(Q, SM.pack_scalars(c, da, dev))], glv=True)
+            hold("ladder", f"ECDH glv T=1 B={CHUNK}",
+                 lambda: K.ladder(c, bases, mag, neg, glv=True),
+                 Twin(None, dev, "ladder_plain", c, bases, mag, neg, glv=True), 3,
+                 compare=coord_diff(c), block=K.ladder_lanes(1, c), T=1, nw=mag.shape[0],
+                 glv=True)
+    return out
+
+
+def h2c_phase(hold, dev) -> dict:
+    """Step 11c, hash-to-curve (RFC 9380) on the card: the final points of
+    the four suites' vectors exactly; CHUNK random messages from a seed on
+    secp256k1 and P-256, every point on the curve and a SAMPLE-lane sample
+    equal to the same call with device="cpu"; pow at the SSWU exponent e =
+    (p - 3)/4 held against its twin on P-384 and P-521 at B = WIDE_COUNT by
+    canonical values. Each map call's launches must equal
+    PROTOCOL_LAUNCHES."""
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.protocols import hash2curve
+    from tpu_ecc_torch.utils import ec_host as H
+
+    out = {}
+    for name, suite in load_vectors("rfc9380_h2c.json")["suites"].items():
+        c = get_curve(name)
+        msgs = [case["msg"].encode() for case in suite["cases"]]
+        got, l, _ = _launched(f"hash_to_curve {name}",
+                              lambda: hash2curve.hash_to_curve(c, msgs, suite["dst"].encode()),
+                              ("pow",))
+        _expect_launches(f"hash_to_curve {name}", l,
+                         "h2c secp256k1" if name == "secp256k1" else "h2c")
+        want = [(int(case["x"], 16), int(case["y"], 16)) for case in suite["cases"]]
+        if got != want:
+            raise AssertionError(f"hash_to_curve {name} differs from RFC 9380's vectors")
+        out[name] = {"launches": l}
+    print(f"hash_to_curve: the RFC 9380 vectors of {list(out)} equal; pow launches a call "
+          f"{[v['launches']['pow'] for v in out.values()]}")
+    rng = np.random.default_rng(53)
+    dst = b"QUUX-V01-CS02-with-secp256k1_XMD:SHA-256_SSWU_RO_"
+    for name in ("secp256k1", "p256"):
+        c = get_curve(name)
+        msgs = [rng.bytes(int(rng.integers(0, 100))) for _ in range(CHUNK)]
+        got, l, s = _launched(f"hash_to_curve {name}",
+                              lambda: hash2curve.hash_to_curve(c, msgs, dst), ("pow",))
+        if not all(H.on_curve(c, q) for q in got):
+            raise AssertionError(f"hash_to_curve {name}: a point off the curve")
+        sample = [int(i) for i in rng.choice(CHUNK, SAMPLE, replace=False)]
+        t = time.perf_counter()
+        cpu = hash2curve.hash_to_curve(c, [msgs[i] for i in sample], dst, device="cpu")
+        cpu_s = time.perf_counter() - t
+        if [got[i] for i in sample] != cpu:
+            raise AssertionError(f"hash_to_curve {name} differs from device='cpu'")
+        out[name]["rate"] = CHUNK / s
+        print(f"  {name}, {CHUNK} messages: all on the curve, {SAMPLE} sampled lanes equal "
+              f"device='cpu' ({cpu_s:.1f} s there); {CHUNK / s:.1f} hashes/s (one run, "
+              f"host-bound); launches {l}")
+    for name in ("p384", "p521"):
+        c = get_curve(name)
+        spec = c.field
+        e = (spec.p - 3) // 4
+        xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p
+              for _ in range(WIDE_COUNT)]
+        x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+        hold("pow", f"{spec.name} e=(p-3)/4 B={WIDE_COUNT}", lambda: K.fpow(spec, x, e),
+             Twin(None, dev, "fpow_plain", spec, x, e), 10,
+             c=c, compare=field_diff(spec), block=K.POW_LANES, field=0, e=e)
     return out
 
 
@@ -1310,7 +1585,7 @@ def main() -> int:
 
 
 def run(pool) -> int:
-    """Steps 1-10 (see the module's docstring), the new curves' twins on
+    """Steps 1-11 (see the module's docstring), the new curves' twins on
     `pool`."""
     from tpu_ecc_torch import native
     from tpu_ecc_torch.curves.specs import get_curve
@@ -1441,6 +1716,17 @@ def run(pool) -> int:
     sm2_bign_phase(WIDE_COUNT)
     wide_s += time.perf_counter() - t10
 
+    # -- 11. Schnorr, ECDH and hash-to-curve -----------------------------------
+    print("Schnorr, ECDH and hash-to-curve (the holds: the ECDH ladder's shape, pow at "
+          "the SSWU exponent)")
+    proto_s = {}
+    for label, phase in (("schnorr", schnorr_phase), ("ecdh", lambda: ecdh_phase(hold, dev)),
+                         ("h2c", lambda: h2c_phase(hold, dev))):
+        t11 = time.perf_counter()
+        phase()
+        proto_s[label] = time.perf_counter() - t11
+    print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in proto_s.items()))
+
     # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
     k_msm = msm_phase(hold, curve, MSM_POINTS, 8, dev, True, clock_hz)
     pts, a_i, k_i = k_msm["pts"], k_msm["a_i"], k_msm["k_i"]
@@ -1499,8 +1785,9 @@ def run(pool) -> int:
               f"{runs}), {r['adds']:.6g} adds/s")
     print(f"msm, secp256k1: {k_msm['rate']:.1f} MSM points/s at 2^20 points; p384: "
           f"{q_msm['rate']:.1f} at 2^16 (medians of {MSM_RUNS})")
-    print(f"build {build_s:.1f} s; the new curves' phases took {wide_s:.1f} s; chip_smoke "
-          f"took {time.perf_counter() - started:.1f} s")
+    print(f"build {build_s:.1f} s; the new curves' phases took {wide_s:.1f} s; Schnorr, ECDH "
+          f"and hash-to-curve {sum(proto_s.values()):.1f} s; chip_smoke took "
+          f"{time.perf_counter() - started:.1f} s")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

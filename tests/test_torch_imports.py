@@ -106,4 +106,8 @@ def test_scan_sees_the_package():
             "tpu_ecc_torch/protocols/rfc6979.py", "tpu_ecc_torch/native/__init__.py",
             "tpu_ecc_torch/parallel/msm.py", "tpu_ecc_torch/tools/bench_gather_probe.py",
             "tpu_ecc_torch/tools/bench_mxu_mul.py", "tpu_ecc_torch/tools/profile_ladder.py",
+            "tpu_ecc_torch/protocols/schnorr.py", "tpu_ecc_torch/protocols/ecdh.py",
+            "tpu_ecc_torch/protocols/hash2curve.py", "tpu_ecc_torch/utils/keccak.py",
+            "tpu_ecc_torch/encoding/keys.py", "tpu_ecc_torch/encoding/asn1.py",
+            "tpu_ecc_torch/encoding/serde.py", "tpu_ecc_torch/curves/scalars.py",
             "chip_smoke.py"} <= names

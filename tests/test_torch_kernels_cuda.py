@@ -6,8 +6,10 @@ segscan, ladder, genmul, bucket_reduce, horner, pow, fixup, ladder_probe,
 fmul_chain, mxu_chain) store canonical values: the element of pow,
 fmul_chain and mxu_chain and each projective coordinate of the others must
 equal the twin's mod p (exact, by canonical limbs), segscan's `scanned` at
-its run-end rows, the only rows it writes. These tests
-need an NVIDIA card and nvcc; they skip without them. Run them on the card
+its run-end rows, the only rows it writes. The BIP340 and RFC 9380
+vectors (tests/vectors/) run through the protocols' entry points with
+device=None. These tests need an NVIDIA card and nvcc; they skip without
+them. Run them on the card
 with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -244,6 +246,94 @@ def test_genmul_matches_plain(dev, name, b):
     out = kernels.genmul(curve, tbl, mag, neg)
     torch.cuda.synchronize()
     _same_mod_p(curve, out, kernels.genmul_plain(curve, tbl, mag, neg))
+
+
+def test_ladder_glv_single_term_matches_plain(dev, k256):
+    """ECDH's shape on secp256k1: one base through the GLV split (T = 1, H
+    = 2, 34 windows) as scalar_mul_glv makes it, equal mod p to the twin
+    by canonical coordinates, one launch; its affine points equal the host
+    oracle's, d = 0 and d = n - 1 among the lanes."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+
+    rng = np.random.default_rng(12)
+    Q = P.point_from_limbs(k256, _points(k256, 13, B, dev))
+    ds = [0, k256.n - 1] + [int.from_bytes(rng.bytes(32), "big") % k256.n for _ in range(B - 2)]
+    k = SM.pack_scalars(k256, ds, dev)
+    bases, mag, neg = SM.ladder_inputs([(Q, k)], glv=True)
+    assert mag.shape == (34, 2, B)
+    kernels.reset_launches()
+    out = kernels.ladder(k256, bases, mag, neg, glv=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["ladder"] == 1
+    _same_mod_p(k256, out, kernels.ladder_plain(k256, bases, mag, neg, glv=True))
+    x, y, inf = P.to_affine(SM.scalar_mul_glv(Q, k))
+    qs = list(zip(F.fe_to_ints(P.to_affine(Q)[0]), F.fe_to_ints(P.to_affine(Q)[1])))
+    want = [ec_host.aff_mul(k256, d, q) for d, q in zip(ds, qs)]
+    got = [None if i else (a, b) for a, b, i in zip(F.fe_to_ints(x), F.fe_to_ints(y),
+                                                    inf.tolist())]
+    assert got == want
+
+
+@pytest.mark.parametrize("name", ["secp256k1", "p256", "p384", "p521"])
+def test_pow_sswu_exponent_matches_plain(dev, name):
+    """pow at hash-to-curve's SSWU exponent e = (p - 3)/4 on the base field
+    of each RFC 9380 suite: equal mod p to the twin by canonical limbs, one
+    launch, and x^e by Python."""
+    spec = get_curve(name).field
+    e = (spec.p - 3) // 4
+    rng = np.random.default_rng(14)
+    xs = [int.from_bytes(rng.bytes(spec.bits // 8 + 8), "big") % spec.p for _ in range(B)]
+    x = F.fsteady(F.fe_from_ints(spec, xs, dev)).limbs
+    kernels.reset_launches()
+    out = kernels.fpow(spec, x, e)
+    torch.cuda.synchronize()
+    assert kernels.launches["pow"] == 1
+    canonical = F.fcanonical(F.fe_steady(spec, out.to(torch.int64))).limbs
+    assert torch.equal(canonical, out.to(torch.int64))
+    want = kernels.fpow_plain(spec, x, e)
+    assert torch.equal(canonical, F.fcanonical(F.fe_steady(spec, want)).limbs)
+    assert F.fe_to_ints(F.fe_steady(spec, out)) == [pow(v, e, spec.p) for v in xs]
+
+
+def _vectors(name):
+    import json
+    import pathlib
+
+    return json.loads((pathlib.Path(__file__).parent / "vectors" / name).read_text())
+
+
+def test_bip340_vectors_on_the_card(dev):
+    """BIP340's sign vectors byte for byte and its verify vectors' booleans
+    (with a tampered signature) through the entry points with device=None."""
+    from tpu_ecc_torch.protocols import schnorr
+
+    c = get_curve("secp256k1")
+    bip = _vectors("bip340.json")
+    sv = bip["sign"]
+    ds = [int(v["seckey"], 16) for v in sv]
+    msgs = [bytes.fromhex(v["msg"]) for v in sv]
+    sigs = [bytes.fromhex(v["sig"]) for v in sv]
+    assert schnorr.sign_batch(c, ds, msgs, [bytes.fromhex(v["aux_rand"]) for v in sv]) == sigs
+    pxs = schnorr.xonly_public_keys(c, ds)
+    bad = bytearray(sigs[0])
+    bad[-1] ^= 1
+    vv = bip["verify"]
+    got = schnorr.verify_batch(c, pxs + pxs[:1] + [int(v["pubkey"], 16) for v in vv],
+                               msgs + msgs[:1] + [bytes.fromhex(v["msg"]) for v in vv],
+                               sigs + [bytes(bad)] + [bytes.fromhex(v["sig"]) for v in vv])
+    assert got == [True] * len(sv) + [False] + [v["valid"] for v in vv]
+
+
+@pytest.mark.parametrize("name", ["secp256k1", "p256", "p384", "p521"])
+def test_rfc9380_vectors_on_the_card(dev, name):
+    """RFC 9380's final points of the suite through hash_to_curve with
+    device=None, exactly."""
+    from tpu_ecc_torch.protocols import hash2curve
+
+    suite = _vectors("rfc9380_h2c.json")["suites"][name]
+    got = hash2curve.hash_to_curve(get_curve(name), [c["msg"].encode() for c in suite["cases"]],
+                                   suite["dst"].encode())
+    assert got == [(int(c["x"], 16), int(c["y"], 16)) for c in suite["cases"]]
 
 
 def _window_group(curve, dev, N, L, w, signed, windows):

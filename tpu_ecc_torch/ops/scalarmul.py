@@ -7,8 +7,9 @@ The torch port of tpu_ecc/ops/scalarmul.py's variable-base side:
   Radix16Decomposition, k256/src/arithmetic/mul.rs:274-305);
 - `scalar_mul` and `lincomb` (shared-doubling Straus, the ECDSA-verify hot
   path, k256/src/arithmetic/mul.rs:342-393);
-- the GLV split for secp256k1 (`glv_decompose_device`, `lincomb_glv`), which
-  halves the window count;
+- the GLV split for secp256k1 (`glv_decompose_device`, `lincomb_glv`,
+  `scalar_mul_glv`), which halves the window count, and the host split of a
+  public scalar (`glv_decompose`);
 - the fixed-base comb k*G (`mul_by_generator`, the sign hot loop) over
   precomputed affine tables d * 16^j * G, and constant-time public-key
   derivation on it (`derive_public_batch`).
@@ -324,3 +325,28 @@ def lincomb_auto(terms, scalar_bits=None) -> Point:
     if c.glv and scalar_bits is None:
         return lincomb_glv(terms)
     return lincomb(terms, scalar_bits)
+
+
+def glv_decompose(curve: CurveSpec, k: int):
+    """Balanced host decomposition k = k1 + k2*lambda (mod n) with |k_i| ~
+    sqrt(n), by exact rounding over the lattice basis (a_i, b_i),
+    a_i + b_i*lambda = 0 mod n (mul.rs:129-152 precomputes the same
+    rounding). Returns (|k1|, sign(k1), |k2|, sign(k2)), signs in {1, -1}.
+    Variable-time: public scalars only; secrets take glv_decompose_device."""
+    g = curve.glv
+    n = curve.n
+    a1, b1, a2, b2 = g["a1"], g["b1"], g["a2"], g["b2"]
+    c1 = (b2 * k + n // 2) // n
+    c2 = (-b1 * k + n // 2) // n
+    k1 = k - c1 * a1 - c2 * a2
+    k2 = -c1 * b1 - c2 * b2
+    assert (k1 + k2 * g["lam"]) % n == k % n
+    return abs(k1), (1 if k1 >= 0 else -1), abs(k2), (1 if k2 >= 0 else -1)
+
+
+def scalar_mul_glv(Q: Point, k_limbs: torch.Tensor) -> Point:
+    """k*Q through the device GLV split and the endomorphism: one base, two
+    signed 132-bit halves on the `ladder` kernel (34 windows instead of 65;
+    mul.rs:342-393, 443-445). Constant-time: the split is branchless and the
+    ladder selects by mask."""
+    return lincomb_glv([(Q, k_limbs)])
