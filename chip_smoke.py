@@ -104,16 +104,35 @@
    fixup and bucket_reduce also at the last group's 3 windows,
    bucket_reduce with and without drop0, horner on the 19 window sums;
    fixup, bucket_reduce and horner by canonical coordinates, and horner's
-   one-thread bound in both designs' counts). Then `msm()` (signed, w =
-   14, 8192 lanes) must equal (sum a_i*k_i mod n)*G from one host
-   `aff_mul`, with every phase kernel launched; the device core (packed
-   tensors in, point out, closed by a synchronize) runs 5 times. A Straus
-   `msm()` at 4096 points is checked the same way, with the ladder
-   launched. Then one core run under torch.profiler gives the device time
-   of each step of msm_pippenger (its `msm/<step>` ranges). Last, the same
-   phase on P-384 at 2^16 points (its 28 windows in one group; no
-   variants).
-9. Probes (run after step 7, before the record of step 8): holds the four
+   one-thread bound in both designs' counts; horner's twin is computed by
+   a CPU worker while the msm() runs go on, and held after them). Then
+   `msm()` (signed, w = 14, 8192 lanes) must equal (sum a_i*k_i mod n)*G
+   from one host `aff_mul`, with every phase kernel launched; the device
+   core (packed tensors in, point out, closed by a synchronize) runs 5
+   times. A Straus `msm()` at 4096 points is checked the same way, with
+   the ladder launched. Then one core run under torch.profiler gives the
+   device time of each step of msm_pippenger (its `msm/<step>` ranges).
+   Last, the same phase on P-384 at 2^16 points (its 28 windows in one
+   group; no variants).
+12. The sharded MSM (after step 7, before the probes; `sharded_phase`):
+   step 7's tensors released, SHARD_RANKS = 4 ranks spawned on the one
+   card in a gloo group (file:// rendezvous under build/sharded/), each
+   loading only kernels that step 1 built. Case 1: each rank makes its
+   2^18 of step 7's 2^20 points again from the seed, derives them on the
+   card, and runs `msm_sharded` (signed Pippenger, w = 14) with the ring
+   and the gather on a 1-D mesh of 4 and "auto" on a (2, 2) ("dcn",
+   "ici") mesh: every result on every rank must equal step 7's host
+   check, with the four phase kernels launched; each core (the rank's
+   partial and the fold, closed by a synchronize, the ranks started
+   together) runs 3 times, and the fold alone, ring and gather. Case 2:
+   the Straus `msm()` over 4 x 4096 of step 7's points on the 1-D mesh,
+   against the host check, with the ladder launched. Case 3: adversarial
+   shards (`adversarial_inputs`: a rank of only padding, one of only zero
+   scalars, equal points and digits across the boundaries), Pippenger
+   and Straus, ring and gather, against the host oracle. Prints each
+   rank's core and fold ms, launches and peak memory, the card's name
+   and power limit; four ranks share one card, so no scaling figure.
+9. Probes (run after step 12, before the record of step 8): holds the four
    probe kernels against their twins at the tools' shapes (exact): dma_gather
    (N = 2^20, W = 128, M = 2^18, Cb = 4096 at depth 8, 2 and 16, and Cb =
    256 at depth 8; each with the GB/s of the rows read beside
@@ -126,7 +145,8 @@
    Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
    default sizes, each with the counts set to 0 just before and read just
    after, and prints what each probe answered.
-8. Prints the build's and the whole run's seconds, the card's name and
+8. Prints the build's, the sharded MSM's and the whole run's seconds, the
+   card's name and
    power limit, a `kernels` JSON line (each kernel and build: its launches
    on its path or per tool run, its error against its twin, its time, its
    twin's time (a worker's on the CPU for the twins of step 10's holds),
@@ -1364,20 +1384,35 @@ def run_holds(hold, holds) -> None:
     torch.cuda.synchronize()
 
 
-def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) -> dict:
+def msm_scalars(c, N: int, seed: int, lo: int = 0, hi: int | None = None) -> tuple:
+    """(a_i, k_i) for i in [lo, hi) of step 7's N points P_i = a_i*G and
+    full-width scalars k_i, made from `seed` (a rank of step 12 makes its
+    own shard's)."""
+    nb = c.scalar_bytes
+    raw = np.random.default_rng(seed).bytes(2 * nb * N)
+    rows = range(lo, N if hi is None else hi)
+    a_i = [int.from_bytes(raw[2 * nb * i:2 * nb * i + nb], "big") % (c.n - 1) + 1 for i in rows]
+    k_i = [int.from_bytes(raw[2 * nb * i + nb:2 * nb * (i + 1)], "big") % c.n for i in rows]
+    return a_i, k_i
+
+
+def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float,
+              pool) -> dict:
     """Step 7 on curve c: N points P_i = a_i*G made on the card
     (derive_public_batch) and full-width k_i, from `seed`. Holds the four
     Pippenger phase kernels against their twins on the card at the shapes
     the first group of windows gives them (segscan signed, fixup,
-    bucket_reduce without drop0 as the signed path runs it, horner on all
-    the window sums; with `variants` also segscan unsigned on 16 rows,
-    bucket_reduce with drop0, fixup and bucket_reduce at the last group's
-    3 windows), by canonical coordinates, and horner's one-thread bound in
-    both designs' counts. Then msm() (signed, w = MSM_W) must equal (sum
-    a_i*k_i mod n)*G from one host aff_mul, with every phase kernel
-    launched; the device core (packed tensors in, point out, closed by a
-    synchronize) runs MSM_RUNS times. Returns the points, the scalars, the
-    core, msm()'s launches and the core's median points/s."""
+    bucket_reduce without drop0 as the signed path runs it; with
+    `variants` also segscan unsigned on 16 rows, bucket_reduce with drop0,
+    fixup and bucket_reduce at the last group's 3 windows), by canonical
+    coordinates. Then msm() (signed, w = MSM_W) must equal (sum a_i*k_i
+    mod n)*G from one host aff_mul, with every phase kernel launched; the
+    device core (packed tensors in, point out, closed by a synchronize)
+    runs MSM_RUNS times. Last, horner on all the window sums against its
+    twin, which a worker of `pool` computed on the CPU meanwhile, and its
+    one-thread bound in both designs' counts. Returns the points, the
+    scalars, the core, msm()'s launches, the core's median points/s and
+    the host check."""
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import scalarmul as SM
@@ -1386,12 +1421,7 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) 
 
     print(f"msm: {c.name}, {N} points a_i*G made on the card, full-width k_i")
     t = time.perf_counter()
-    nb = c.scalar_bytes
-    raw = np.random.default_rng(seed).bytes(2 * nb * N)
-    a_i = [int.from_bytes(raw[2 * nb * i:2 * nb * i + nb], "big") % (c.n - 1) + 1
-           for i in range(N)]
-    k_i = [int.from_bytes(raw[2 * nb * i + nb:2 * nb * (i + 1)], "big") % c.n for i in range(N)]
-    del raw
+    a_i, k_i = msm_scalars(c, N, seed)
     pts = SM.derive_public_batch(c, a_i)
     want = H.aff_mul(c, sum(a * k for a, k in zip(a_i, k_i)) % c.n, H.aff_generator(c))
     print(f"  points, scalars and the host check made in {time.perf_counter() - t:.1f} s")
@@ -1456,14 +1486,9 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) 
     s_all = torch.cat([M.window_sums(c, payload, keys[j:j + per], negs[j:j + per],
                                      lanes, nbuck, True)
                        for j in range(0, nwin, per)], -1).permute(2, 0, 1)
-    hold("horner", f"{c.name} w={MSM_W} nw={nwin}", lambda: K.horner(c, s_all, MSM_W),
-         lambda: K.horner_plain(c, s_all, MSM_W), 5, c=c, B=1, compare=coord_diff(c),
-         nw=nwin, w=MSM_W)
-    thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
-                 / clock_hz for d in K.designs("horner", c)}
-    hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
-    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
-        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
+    # horner's twin (one point, hundreds of small operations: seconds on
+    # the card) goes to a CPU worker; its hold comes after the msm() runs
+    horner_twin = Twin(pool, dev, "horner_plain", c, s_all, MSM_W)
     del skey, key2, val2, neg2, scanned, fixed, payload, buckets
     torch.cuda.synchronize()
 
@@ -1496,8 +1521,251 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float) 
             raise AssertionError(f"the {c.name} MSM core differs between runs")
     rate = float(np.median(rates))
     print(f"  device core: points/s median {rate:.1f}, runs {[round(r, 1) for r in rates]}")
+    hold("horner", f"{c.name} w={MSM_W} nw={nwin}", lambda: K.horner(c, s_all, MSM_W),
+         horner_twin, 5, c=c, B=1, compare=coord_diff(c), nw=nwin, w=MSM_W)
+    thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
+                 / clock_hz for d in K.designs("horner", c)}
+    hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
+    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
+        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
     return {"pts": pts, "a_i": a_i, "k_i": k_i, "core": core, "launches": launches,
-            "rate": rate}
+            "rate": rate, "want": want}
+
+
+SHARD_RANKS = 4          # step 12's ranks, all on the one card
+SHARD_RUNS = 3           # timed runs of each sharded core and of each fold
+SHARD_TIMEOUT = 300      # seconds the ranks may take, spawning included
+SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded")
+PHASE_KERNELS = ("segscan", "fixup", "bucket_reduce", "horner")
+
+
+def host_msm(c, pts, ks):
+    """sum k_i * P_i by the host oracle, one aff_mul per distinct point."""
+    from tpu_ecc_torch.utils import ec_host as H
+
+    total = {}
+    for p_, k in zip(pts, ks):
+        total[p_] = (total.get(p_, 0) + k) % c.n
+    acc = None
+    for p_, k in total.items():
+        acc = H.aff_add(c, acc, H.aff_mul(c, k, p_))
+    return acc
+
+
+def adversarial_inputs(c, method: str) -> tuple:
+    """Step 12's case 3 for `method` on SHARD_RANKS ranks: (points,
+    scalars, msm()'s keywords). N is not a multiple of msm()'s unit, so
+    that the last rank holds only padding (Pippenger: 70 points at 8 lanes,
+    shards of 24; Straus: 3000 points at 8 terms, shards of 1024); the rank
+    before it holds only zero scalars; one point and one scalar sit on both
+    sides of the boundary between ranks 0 and 1, and one point with zero
+    scalars on both sides of the boundary between ranks 1 and 2."""
+    import random
+
+    from tpu_ecc_torch.utils import ec_host as H
+
+    N, shard, kw = ((70, 24, dict(method="pippenger", lanes=8)) if method == "pippenger"
+                    else (3000, 1024, dict(method="straus")))
+    rng = random.Random(12)
+    base = [H.aff_mul(c, rng.randrange(1, c.n), H.aff_generator(c)) for _ in range(8)]
+    pts = [base[rng.randrange(8)] for _ in range(N)]
+    ks = [rng.randrange(1, c.n) for _ in range(N)]
+    k = rng.randrange(1, c.n)
+    for i in range(shard - 6, shard + 6):
+        pts[i], ks[i] = base[0], k
+    for i in range(2 * shard - 5, N):
+        pts[i], ks[i] = base[1], 0
+    return pts, ks, kw
+
+
+def _timed_ms(fn, runs: int, barrier) -> tuple:
+    """(the last output, the ms of each of `runs` calls of fn), each call
+    started together with the other ranks (barrier) and closed by a
+    synchronize of the card."""
+    out, ms = None, []
+    for _ in range(runs):
+        barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return out, ms
+
+
+def sharded_rank(rank: int, want) -> None:
+    """One rank of step 12, on card 0 in a gloo group of SHARD_RANKS (a
+    file:// rendezvous in SHARD_DIR); it loads only kernels that step 1
+    built. Case 1: its shard of step 7's MSM_POINTS points (made again
+    from seed 8, derived on the card) through msm_sharded, signed w =
+    MSM_W, with the ring and the gather on a 1-D mesh and "auto" on a
+    (2, 2) ("dcn", "ici") mesh: each must equal `want` and launch the four
+    phase kernels (the counts set to 0 just before, read just after); then
+    each core SHARD_RUNS times, and the fold alone, ring and gather, on
+    this rank's partial. Case 2: the Straus msm() over the first
+    SHARD_RANKS * STRAUS_POINTS of step 7's points (made again, derived on
+    the card) on the 1-D mesh, which must equal their host check and
+    launch the ladder. Case 3:
+    `adversarial_inputs` for both methods, ring and gather, against the
+    host oracle. Writes its record to SHARD_DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import fe as F
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import points as P
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import collectives as CL
+    from tpu_ecc_torch.parallel import msm as M
+    from tpu_ecc_torch.utils import ec_host as H
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(SHARD_DIR, "rendezvous"),
+                            rank=rank, world_size=SHARD_RANKS)
+    try:
+        c = get_curve("secp256k1")
+        for name in PHASE_KERNELS + ("ladder", "genmul", "pow"):
+            if not os.path.exists(K._target(name, c)[0]):
+                raise RuntimeError(f"rank {rank}: step 1 did not build the {name} kernel")
+        torch.cuda.reset_peak_memory_stats()
+        line = CL.make_mesh(SHARD_RANKS, "dp")
+        grid = CL.make_mesh(shape=(2, 2), axes=("dcn", "ici"))
+        part = CL.shard_slice(line, "dp", MSM_POINTS)
+        a_i, k_i = msm_scalars(c, MSM_POINTS, 8, part.start, part.stop)
+        packed = M.pack(c, SM.derive_public_batch(c, a_i), k_i, part.stop - part.start, dev)
+        del a_i, k_i
+        rec = {"rank": rank, "made_s": time.perf_counter() - t0, "launches": {},
+               "core_ms": {}, "fold_ms": {}}
+
+        def affine(limbs):
+            x, y, inf = P.to_affine(P.point_from_limbs(c, limbs))
+            return None if bool(inf) else (F.fe_to_ints(x)[0], F.fe_to_ints(y)[0])
+
+        for label, rm, mesh, axis in (("ring", "ring", line, "dp"),
+                                      ("gather", "gather", line, "dp"),
+                                      ("auto (2, 2)", "auto", grid, ("dcn", "ici"))):
+            def core(mesh=mesh, axis=axis, rm=rm):
+                return M.msm_sharded(c, mesh, axis, *packed, method="pippenger", w=MSM_W,
+                                     lanes=MSM_LANES, reduce_method=rm, signed=True)
+
+            dist.barrier()
+            K.reset_launches()
+            first = core()
+            rec["launches"][label] = launches = dict(K.launches)
+            if affine(first) != tuple(want):
+                raise AssertionError(f"rank {rank}: the sharded MSM ({label}) disagrees "
+                                     "with the host check")
+            for name in PHASE_KERNELS:
+                if launches[name] <= 0:
+                    raise AssertionError(f"rank {rank}: the sharded MSM ({label}) did not "
+                                         f"launch the {name} kernel")
+            out, rec["core_ms"][label] = _timed_ms(core, SHARD_RUNS, dist.barrier)
+            if not torch.equal(out, first):
+                raise AssertionError(f"rank {rank}: the sharded MSM ({label}) differs "
+                                     "between runs")
+        partial = M.msm_limbs(c, *packed, "pippenger", w=MSM_W, lanes=MSM_LANES,
+                              signed=True)[..., None]
+        for rm in ("ring", "gather"):
+            _, rec["fold_ms"][rm] = _timed_ms(
+                lambda rm=rm: M.fold_partials(c, line, "dp", partial, rm), SHARD_RUNS,
+                dist.barrier)
+        del packed, partial
+
+        a_i, k_i = msm_scalars(c, MSM_POINTS, 8, 0, SHARD_RANKS * STRAUS_POINTS)
+        straus_pts = SM.derive_public_batch(c, a_i)
+        straus_want = H.aff_mul(c, sum(a * k for a, k in zip(a_i, k_i)) % c.n,
+                                H.aff_generator(c))
+        dist.barrier()
+        K.reset_launches()
+        got = M.msm(c, straus_pts, k_i, mesh=line)
+        rec["straus_launches"] = dict(K.launches)
+        if got != straus_want:
+            raise AssertionError(f"rank {rank}: the sharded Straus msm() disagrees with "
+                                 "the host check")
+        if rec["straus_launches"]["ladder"] <= 0:
+            raise AssertionError(f"rank {rank}: the sharded Straus msm() did not launch "
+                                 "the ladder kernel")
+        for method in ("pippenger", "straus"):
+            pts, ks, kw = adversarial_inputs(c, method)
+            want3 = host_msm(c, pts, ks)
+            for rm in ("ring", "gather"):
+                if M.msm(c, pts, ks, mesh=line, reduce_method=rm, **kw) != want3:
+                    raise AssertionError(f"rank {rank}: the adversarial shards ({method}, "
+                                         f"{rm}) disagree with the host oracle")
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(SHARD_DIR, f"rank{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(want) -> list:
+    """Step 12: SHARD_RANKS ranks (`sharded_rank`) spawned on the one card;
+    a rank's exception, or ranks still running after SHARD_TIMEOUT
+    seconds, raise here (the ranks still alive are killed). Prints each
+    rank's times, launches and peak memory; returns the ranks' records."""
+    import torch.multiprocessing as tmp
+
+    from tpu_ecc_torch.curves.specs import get_curve
+    from tpu_ecc_torch.ops import points as P
+
+    c = get_curve("secp256k1")
+    pts = P.point_limbs(P.generator(c, (2,), torch.device("cuda")))
+    add_ms = float(np.median(_timed_ms(lambda: P.add_limbs(c, pts[..., 0], pts[..., 1]), 5,
+                                       lambda: None)[1]))
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    for name in os.listdir(SHARD_DIR):
+        os.remove(os.path.join(SHARD_DIR, name))
+    print(f"sharded msm: {SHARD_RANKS} ranks on the one card (gloo, file:// rendezvous; "
+          f"torch.cuda.device_count() = {torch.cuda.device_count()}), {MSM_POINTS} points, "
+          f"{MSM_POINTS // SHARD_RANKS} a rank, signed w={MSM_W}; Straus at "
+          f"{SHARD_RANKS * STRAUS_POINTS} points; adversarial shards")
+    t = time.perf_counter()
+    ctx = tmp.start_processes(sharded_rank, args=(want,), nprocs=SHARD_RANKS, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"the {SHARD_RANKS} ranks did not end within "
+                                   f"{SHARD_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    recs = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(SHARD_DIR, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    for rec in recs:
+        for label, launches in rec["launches"].items():
+            if any(launches[name] <= 0 for name in PHASE_KERNELS):
+                raise AssertionError(f"rank {rec['rank']} ({label}): a phase kernel did not "
+                                     f"launch: {launches}")
+        if rec["straus_launches"]["ladder"] <= 0:
+            raise AssertionError(f"rank {rec['rank']}: the Straus msm() did not launch ladder")
+        print(f"  rank {rec['rank']}: shard made in {rec['made_s']:.1f} s; core ms (median of "
+              f"{SHARD_RUNS}) " + ", ".join(f"{k} {np.median(v):.3f} {[round(x, 3) for x in v]}"
+                                             for k, v in rec["core_ms"].items())
+              + "; fold ms " + ", ".join(f"{k} {np.median(v):.3f} {[round(x, 3) for x in v]}"
+                                         for k, v in rec["fold_ms"].items())
+              + f"; peak {rec['peak_gib']:.2f} GiB; {rec['seconds']:.1f} s in all")
+        print(f"    launches: " + "; ".join(
+            f"{k} {{{', '.join(f'{n}: {v[n]}' for n in PHASE_KERNELS)}}}"
+            for k, v in rec["launches"].items())
+            + f"; Straus ladder {rec['straus_launches']['ladder']}")
+    print(f"  every rank equals the host check under ring, gather and (2, 2) auto, Straus "
+          f"and the adversarial shards; {time.perf_counter() - t:.1f} s with spawning; "
+          f"{smi('name,power.limit')}")
+    print(f"  the fold's add alone (one point, plain torch on the card, this process, "
+          f"median of 5): {add_ms:.3f} ms")
+    print("  four ranks share one card: no scaling figure")
+    return recs
 
 
 def make_hold(rows: dict, clock_hz: float, default_curve):
@@ -1711,7 +1979,6 @@ def run(pool) -> int:
     for holds in wide_holds.values():
         run_holds(hold, holds)
     del wide_holds
-    pool.shutdown()
     wide = {c.name: ecdsa_phases(c, WIDE_COUNT, 1, 1) for c in wide_curves}
     sm2_bign_phase(WIDE_COUNT)
     wide_s += time.perf_counter() - t10
@@ -1728,7 +1995,7 @@ def run(pool) -> int:
     print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in proto_s.items()))
 
     # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
-    k_msm = msm_phase(hold, curve, MSM_POINTS, 8, dev, True, clock_hz)
+    k_msm = msm_phase(hold, curve, MSM_POINTS, 8, dev, True, clock_hz, pool)
     pts, a_i, k_i = k_msm["pts"], k_msm["a_i"], k_msm["k_i"]
     print(f"msm(): {STRAUS_POINTS} points (Straus)")
     want_s = H.aff_mul(curve, sum(a * k for a, k in zip(a_i[:STRAUS_POINTS],
@@ -1750,9 +2017,17 @@ def run(pool) -> int:
     del k_msm["core"]
 
     t10 = time.perf_counter()
-    q_msm = msm_phase(hold, p384, P384_MSM_POINTS, 18, dev, False, clock_hz)
+    q_msm = msm_phase(hold, p384, P384_MSM_POINTS, 18, dev, False, clock_hz, pool)
     del q_msm["core"]
     wide_s += time.perf_counter() - t10
+    pool.shutdown()
+
+    # -- 12. the sharded MSM: SHARD_RANKS ranks on the one card ---------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    sharded_phase(k_msm["want"])
+    sharded_s = time.perf_counter() - t12
 
     # -- 9. the probes (before the record of step 8) ---------------------------
     probe_launches = probes(hold, probe_fields, dev)
@@ -1786,8 +2061,8 @@ def run(pool) -> int:
     print(f"msm, secp256k1: {k_msm['rate']:.1f} MSM points/s at 2^20 points; p384: "
           f"{q_msm['rate']:.1f} at 2^16 (medians of {MSM_RUNS})")
     print(f"build {build_s:.1f} s; the new curves' phases took {wide_s:.1f} s; Schnorr, ECDH "
-          f"and hash-to-curve {sum(proto_s.values()):.1f} s; chip_smoke took "
-          f"{time.perf_counter() - started:.1f} s")
+          f"and hash-to-curve {sum(proto_s.values()):.1f} s; the sharded MSM {sharded_s:.1f} s; "
+          f"chip_smoke took {time.perf_counter() - started:.1f} s in all")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

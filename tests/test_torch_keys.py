@@ -239,9 +239,11 @@ def test_top_level_names_resolve(name):
 
 
 def test_collectives_not_ported():
-    """The sharded MSM's collectives are not ported: the name raises, as an
-    unknown one does."""
-    with pytest.raises(AttributeError):
-        tpu_ecc_torch.collectives
+    """The name `collectives` gives the port's collectives module
+    (parallel/collectives.py), as tpu_ecc's does its own; an unknown name
+    raises."""
+    mod = tpu_ecc_torch.collectives
+    assert mod.__name__ == "tpu_ecc_torch.parallel.collectives"
+    assert callable(mod.make_mesh) and callable(mod.ppermute_ring_reduce)
     with pytest.raises(AttributeError):
         tpu_ecc_torch.no_such_name

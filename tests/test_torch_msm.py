@@ -267,13 +267,13 @@ def test_msm_straus_equals_reference_and_oracle(references, name):
 
 def test_msm_pads_and_checks_its_arguments():
     """Pippenger pads N to its lanes with identity points and zero scalars;
-    a mesh or an unknown method raises."""
+    a mesh that is not a DeviceMesh or an unknown method raises."""
     pts, sets = _case_inputs("u16")
     ks = sets["mixed"][:100]
     got = M.msm(C, pts[:100], ks, method="pippenger", w=5, lanes=16, scalar_bits=16,
                 device="cpu")
     assert got == _host_msm(pts[:100], ks)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         M.msm(C, pts[:8], ks[:8], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown MSM method"):
         M.msm(C, pts[:8], ks[:8], method="bucketed", device="cpu")

@@ -206,13 +206,16 @@ def _sqrt_inputs(spec, seed):
     return squares + nonsq + [0]
 
 
-@pytest.mark.parametrize("name", ["secp256k1", "p224"])
-def test_fsqrt_equals_reference(name):
-    """secp256k1 (p = 3 mod 4: one power on the pow kernel's twin) and p224
-    (constant-time Tonelli–Shanks): the root as a canonical integer and
-    is_square, against tpu_ecc's jitted fsqrt."""
-    spec = get_curve(name).field
-    jspec = j_curve(name).field
+@pytest.mark.parametrize("name,field", [
+    pytest.param("secp256k1", "field", id="secp256k1"), pytest.param("p224", "field", id="p224"),
+    pytest.param("secp256k1", "scalar", id="secp256k1-n")])
+def test_fsqrt_equals_reference(name, field):
+    """secp256k1's base field (p = 3 mod 4: one power on the pow kernel's
+    twin), p224's (constant-time Tonelli–Shanks) and secp256k1's scalar
+    field (n = 1 mod 64: Tonelli–Shanks on a Montgomery field): the root as
+    a canonical integer and is_square, against tpu_ecc's jitted fsqrt."""
+    spec = getattr(get_curve(name), field)
+    jspec = getattr(j_curve(name), field)
     vals = _sqrt_inputs(spec, 25)
 
     @jax.jit

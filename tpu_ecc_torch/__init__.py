@@ -38,7 +38,7 @@ from .ops.points import Point                                        # noqa: E40
 
 _LAZY = {**dict.fromkeys(("ecdsa", "ecdh", "schnorr", "sm2", "bign", "hash2curve",
                           "rfc6979", "belt"), "protocols"),
-         "msm": "parallel",
+         **dict.fromkeys(("msm", "collectives"), "parallel"),
          **dict.fromkeys(("sec1", "der", "keys", "asn1", "serde"), "encoding")}
 
 
@@ -48,8 +48,4 @@ def __getattr__(name):
         import importlib
 
         return importlib.import_module(f".{_LAZY[name]}.{name}", __name__)
-    if name == "collectives":
-        raise AttributeError(
-            f"module {__name__!r} has no attribute 'collectives': the sharded MSM's "
-            "collectives are not ported")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

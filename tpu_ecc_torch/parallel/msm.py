@@ -1,8 +1,8 @@
-"""Multi-scalar multiplication (MSM) on one device: Straus for small N, the
-bucketed Pippenger for large N.
+"""Multi-scalar multiplication (MSM): Straus for small N, the bucketed
+Pippenger for large N, on one device or sharded over the ranks of a mesh.
 
-The torch port of tpu_ecc/parallel/msm.py's single-device side, limb-equal
-with tpu_ecc's XLA path. Two methods behind one `msm()` entry:
+The torch port of tpu_ecc/parallel/msm.py, limb-equal with tpu_ecc's XLA
+path. Two methods behind one `msm()` entry:
 
 - *Straus* (small N, secret scalars): points go in groups of T terms x B
   lanes through `scalarmul.lincomb_auto` (the `ladder` kernel, with the GLV
@@ -26,12 +26,23 @@ through each phase side by side (`GROUP_BYTES`: 8 windows at 2^20 points),
 which puts 65536 lanes, not 8192, in each launch; the limbs of every window
 are the same. The payload enters as int32 point-major rows [N, 3n],
 converted once: the port's int64 limbs would double the 252 MB a 2^20-point
-window gathers. The sharded MSM (`mesh`) is not ported yet.
+window gathers.
+
+Sharded (`msm(mesh=...)`, `msm_sharded`): the point axis is split over the
+named axes of a DeviceMesh (parallel/collectives.py), one contiguous shard
+a rank; each rank packs and sums its own shard with the methods above,
+and the one-point partials fold over the axes, innermost first, by a ring
+of neighbour exchanges or by a gather and a log-depth tree. Point
+addition is not an arithmetic all-reduce, so the fold's add is
+`points.add_limbs`, the step of tpu_ecc's `padd` and `steady`.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 from torch.profiler import record_function
 
 from .. import resolve_device
@@ -41,6 +52,7 @@ from ..ops import kernels
 from ..ops import points as P
 from ..ops import scalarmul as SM
 from ..ops.points import Point
+from . import collectives as CL
 
 
 def tree_reduce_points(pt: Point) -> Point:
@@ -270,10 +282,6 @@ def msm_pippenger(curve: CurveSpec, xs: F.FE, ys: F.FE, inf_mask: torch.Tensor,
     return P.point_from_limbs(curve, out.to(F.LIMB))
 
 
-# ---------------------------------------------------------------------------
-# host entry
-# ---------------------------------------------------------------------------
-
 def msm_limbs(curve: CurveSpec, xs_l: torch.Tensor, ys_l: torch.Tensor,
               inf_mask: torch.Tensor, k_limbs: torch.Tensor, method: str,
               terms: int = 8, scalar_bits=None, w: int = 13, lanes: int = 8192,
@@ -293,6 +301,80 @@ def msm_limbs(curve: CurveSpec, xs_l: torch.Tensor, ys_l: torch.Tensor,
     return P.point_limbs(pt)
 
 
+# ---------------------------------------------------------------------------
+# sharded over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+REDUCE_METHODS = ("auto", "ring", "gather")
+
+
+def _mesh_axes(mesh, axis, reduce_method: str) -> tuple:
+    """The mesh's axes named by `axis` (one name or a tuple, outermost
+    first), after checking the mesh's type and the reduce method."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, not {type(mesh).__name__}")
+    if reduce_method not in REDUCE_METHODS:
+        raise ValueError(f"unknown reduce_method {reduce_method!r}: one of {REDUCE_METHODS}")
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def fold_partials(curve: CurveSpec, mesh, axis, packed: torch.Tensor,
+                  reduce_method: str = "auto") -> torch.Tensor:
+    """Fold every rank's partial point limbs packed [3, n, B] (B a power
+    of two) over the mesh axes `axis`, innermost first -> the total [3, n],
+    the same point on every rank (rank r's limbs are tpu_ecc's device
+    r's). Per axis: "ring" folds the local lanes to one point by the tree
+    and passes it round the ring (`ppermute_ring_reduce`), "gather"
+    gathers the lanes of the axis and folds them by the tree, "auto" takes
+    the ring on an axis of at most 8 ranks and the gather above."""
+    axes = _mesh_axes(mesh, axis, reduce_method)
+
+    def tree(limbs):
+        return P.point_limbs(tree_reduce_points(P.point_from_limbs(curve, limbs)))
+
+    for ax in reversed(axes):
+        kind = reduce_method
+        if kind == "auto":
+            kind = "ring" if CL.axis_size(mesh, ax) <= 8 else "gather"
+        if kind == "ring":
+            packed = CL.ppermute_ring_reduce(
+                tree(packed), mesh, ax, lambda a, b: P.add_limbs(curve, a, b))[..., None]
+        else:
+            packed = tree(CL.all_gather(packed, mesh, ax, axis=2))[..., None]
+    return packed[..., 0]
+
+
+def msm_sharded(curve: CurveSpec, mesh, axis, xs_l: torch.Tensor, ys_l: torch.Tensor,
+                inf_mask: torch.Tensor, k_l: torch.Tensor, terms: int = 8,
+                scalar_bits=None, method: str = "straus", w: int = 13,
+                lanes: int = 8192, reduce_method: str = "auto",
+                signed: bool = False) -> torch.Tensor:
+    """The MSM of points sharded over `axis` of `mesh` (one axis name or a
+    tuple, outermost first, e.g. ("dcn", "ici")); every rank of the mesh
+    calls it with its own shard: affine limbs xs_l, ys_l [n, N/D], inf_mask
+    bool [N/D], scalar limbs k_l [ns, N/D]. Returns this rank's copy of the
+    sum's point limbs [3, n]; every rank's is the same point.
+
+    The rank's partial comes from `msm_pippenger` (one point) or from the
+    Straus lanes (`msm_local_lanes`, [lanes] points unfolded); the partials
+    then fold over the axes (`fold_partials`), innermost first, so that on
+    a hierarchical mesh only one folded point a slice crosses each outer
+    axis."""
+    _mesh_axes(mesh, axis, reduce_method)
+    if method == "straus":
+        f = curve.field
+        packed = P.point_limbs(msm_local_lanes(curve, F.fe_steady(f, xs_l), F.fe_steady(f, ys_l),
+                                               inf_mask, k_l, terms, scalar_bits))
+    else:                                                  # one point: [3, n, 1]
+        packed = msm_limbs(curve, xs_l, ys_l, inf_mask, k_l, method, terms, scalar_bits, w,
+                           lanes, signed)[..., None]
+    return fold_partials(curve, mesh, axis, packed, reduce_method)
+
+
+# ---------------------------------------------------------------------------
+# host entry
+# ---------------------------------------------------------------------------
+
 def pack(curve: CurveSpec, points, scalars, unit: int, device=None):
     """Host points [(x, y)] and scalars -> (xs_l, ys_l [n, Np], inf_mask
     bool [Np], k_limbs [ns, Np]) on `device` (the card unless another is
@@ -308,35 +390,53 @@ def pack(curve: CurveSpec, points, scalars, unit: int, device=None):
     return xs_l, ys_l, inf, SM.pack_scalars(curve, list(scalars) + [0] * pad, dev)
 
 
-def msm(curve: CurveSpec, points, scalars, mesh=None, terms: int = 8,
+def msm(curve: CurveSpec, points, scalars, mesh=None, axis="dp", terms: int = 8,
         scalar_bits=None, method: str = "auto", w: int | None = None,
-        lanes: int = 8192, signed: bool | None = None, device=None):
+        lanes: int = 8192, reduce_method: str = "auto", signed: bool | None = None,
+        device=None):
     """Host entry: points = [(x, y) ints], scalars = [ints] -> the affine sum
     (x, y), or None for the identity. Runs on the card unless `device` names
     another.
 
-    Pads to a lane- or term-aligned size with identity points, packs, runs
-    `msm_limbs` and converts the result to affine. method: 'straus'
-    (constant-time; small N), 'pippenger' (large public aggregations) or
-    'auto' (Pippenger from 2^14 points). Pippenger is signed with w = 14 by
-    default (unsigned: w = 13)."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded MSM is not ported yet")
+    Pads to a lane-, term- and shard-aligned size with identity points,
+    packs, runs `msm_limbs` (or, on a mesh, `msm_sharded`) and converts the
+    result to affine. method: 'straus' (constant-time; small N),
+    'pippenger' (large public aggregations) or 'auto' (Pippenger from 2^14
+    points a shard). Pippenger is signed with w = 14 by default (unsigned:
+    w = 13).
+
+    mesh: a DeviceMesh (parallel/collectives.py) whose every rank calls
+    msm() with the same arguments; the point axis is sharded over `axis`
+    (one axis name or a tuple, outermost first), each rank packs only its
+    own shard, the partials fold by `reduce_method` ("ring", "gather" or
+    "auto", see `fold_partials`), and every rank returns the same sum."""
     dev = resolve_device(device)
     N = len(points)
+    D = 1
+    if mesh is not None:
+        axes = _mesh_axes(mesh, axis, reduce_method)
+        D = math.prod(CL.axis_size(mesh, ax) for ax in axes)
     if method == "auto":
-        method = "pippenger" if N >= (1 << 14) else "straus"
+        method = "pippenger" if N // D >= (1 << 14) else "straus"
     if signed is None:
         signed = method == "pippenger"
     if w is None:
         w = 14 if signed else 13
     if method == "pippenger":
-        lanes = min(lanes, 1 << max(N.bit_length() - 3, 3))
-        unit = lanes
+        lanes = min(lanes, 1 << max((N // D).bit_length() - 3, 3))
+        unit = lanes * D
     else:
-        unit = terms * 128
-    out = msm_limbs(curve, *pack(curve, points, scalars, unit, dev), method, terms,
-                    scalar_bits, w, lanes, signed)
+        unit = terms * 128 * D
+    if mesh is None:
+        out = msm_limbs(curve, *pack(curve, points, scalars, unit, dev), method, terms,
+                        scalar_bits, w, lanes, signed)
+    else:
+        # the padding is global, as tpu_ecc's, so the shards split where its do
+        part = CL.shard_slice(mesh, axes, -(-max(N, 1) // unit) * unit)
+        out = msm_sharded(curve, mesh, axes,
+                          *pack(curve, list(points)[part], list(scalars)[part],
+                                part.stop - part.start, dev),
+                          terms, scalar_bits, method, w, lanes, reduce_method, signed)
     x, y, is_inf = P.to_affine(P.point_from_limbs(curve, out))
     if bool(is_inf):
         return None
