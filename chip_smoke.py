@@ -12,23 +12,33 @@
    words); pow, ladder, genmul, padd and pdouble for P-521 (N = 17), P-224
    (7), P-192 (6), SM2, bign256, bp256t1 (8), bp384t1 (12) and, on the
    generic-a formulas, bp256r1 (8) and bp384r1 (12) (padd is padd_chain's
-   library at one add: one build serves both); then the native signing
-   code (g++). Prints the seconds it
+   library at one add: one build serves both); and the four MSM phase
+   kernels (segscan, fixup, bucket_reduce, horner) for each of MSM_CURVES
+   (P-256, SM2, bign256, P-224, P-192, bp256t1, bp256r1, bp384t1, bp384r1,
+   P-521): 115 libraries. Those that step 7 and later steps need first,
+   the MSM's phase kernels of all twelve curves and the probes' (55), build
+   in the background, on a thread at the same niceness, from the end of
+   this step until step 10, which waits for them first; then the native
+   signing code (g++). Prints the seconds each build
    took and ptxas's registers and stack for each library. The kernels on
    the 32-bit field layer at N = 8 words (fmul_chain and mxu_chain, on
    their bare fields' `Field32`, among them) and dma_gather must show 0
    bytes of spill stores and loads (a build at N = 6, 7, 12 or 17 prints
-   its spill); for the secp256k1 and P-256 builds, the probes' and P-384's
-   and P-521's ladder and pow, the instructions of the loop bodies in the
-   built SASS (cuobjdump -sass; pow's for each field, ladder_probe's for
-   each variant; bucket_reduce's tree step and fixup's step, which have no
-   loop, whole; fmul_chain's multiply, mxu_chain's step), by class, print
-   beside the count of kernels.work's "fe32" design; mxu_chain's step must
-   hold a warpgroup MMA instruction (the GMMA family: its two constant
+   its spill; the background's libraries are checked so after the wait);
+   for the secp256k1 and P-256 builds, the probes' and P-384's and P-521's
+   ladder and pow, the instructions of the loop bodies in the built SASS
+   (cuobjdump -sass; pow's for each field, ladder_probe's for each
+   variant; bucket_reduce's tree step and fixup's step, which have no
+   loop, whole; fmul_chain's multiply, mxu_chain's step), by class, are
+   read at step 8, after every timed step, and print beside the count of
+   kernels.work's "fe32" design; mxu_chain's step must hold
+   a warpgroup MMA instruction (the GMMA family: its two constant
    products on `wgmma`). Then
-   it makes the inputs of the new curves' holds (step 10) and hands their
-   twins to TWIN_WORKERS processes, which compute them on the CPU while
-   steps 2-6 run.
+   it makes the inputs of the new curves' holds (step 10) and of
+   ladder_probe's (step 9) and hands their twins to TWIN_WORKERS
+   processes, which compute them on the CPU while the background build
+   runs (step 2's twin of the Straus shape too, from the start of the
+   build).
 2. Holds each kernel against its plain PyTorch twin on the card, at the
    shapes the main path gives it (tolerance: exact, zero limb difference;
    for the kernels on the 32-bit layer, which store canonical values, zero
@@ -46,6 +56,9 @@
    on both fields, the verify's ladder with T = 2 and no GLV on all the
    scalar's windows, 65 or 97, and genmul, each at B = 4096, a core
    call's width), all by canonical values mod p.
+   The steps run in the order 1, 10, 2, 11, 3-6, 7, 12, 9, 8: step 10
+   first waits for the background build, so that no timing runs beside
+   nvcc.
 3. Verify: `verify_batch` on secp256k1 over 8192 signatures in two chunks,
    about a quarter of them tampered, run 7 times; every boolean must match
    in every run. Prints each run's verifies/s and their median, and the
@@ -54,6 +67,9 @@
    in two chunks, run 7 times; the same signatures must come out of every
    run, and genmul and pow must have launched. A sample of 256 lanes must
    equal the host oracle's signature with the pure-Python RFC 6979 nonce.
+   (The host oracle's signatures, nonces and sampled keys of steps 3-6
+   and 10 come from `ecdsa_oracle` on the CPU workers, made while the
+   card runs other steps.)
    Derive: `derive_public_batch` over the same 8192 d, 7 runs; a sample of
    256 lanes must equal the host oracle's d*G. All 8192 signatures must
    pass `verify_batch` on the card under the derived keys, and
@@ -68,20 +84,24 @@
 6. P-256: steps 3-5 again on P-256 (sha256, not low-s; the verify's
    lincomb on the two-term ladder without GLV, 65 windows), with the same
    sizes, checks and run counts, except that the signatures are the host
-   oracle's without low-s folding.
-10. The new curves (after step 6): P-384's path, steps 3-5 at the same
-   sizes and checks, P384_RUNS runs each; then the holds of the other new
-   builds at their path's shapes, B = WIDE_COUNT lanes (pow on both
-   fields, the verify's ladder on all the scalar's windows, 49 to 132,
-   genmul on all the comb's), their twins those the workers computed on
-   the CPU; on P-521, P-224, P-192, SM2, bign256, bp256t1, bp384t1,
-   bp256r1 and bp384r1 steps 3-4 at WIDE_COUNT signatures, one run each
+   oracle's without low-s folding. Then P-384's path: steps 3-5 at the
+   same sizes and checks, P384_RUNS runs each; and on P-521, P-224, P-192,
+   SM2, bign256, bp256t1, bp384t1, bp256r1 and bp384r1 the chain of step 5
+   (padd_chain at B = 8192, repeat 16) held against its twin, computed at
+   once on the card, its adds/s and 8 lanes against the host oracle.
+10. The new curves (after step 1 and the background build's end): the
+   holds of their other builds at
+   their path's shapes, B = WIDE_COUNT lanes
+   (pow on both fields, the verify's ladder on all the scalar's windows,
+   49 to 132, genmul on all the comb's), their twins those the workers
+   computed on the CPU; and steps 3-4 at WIDE_COUNT signatures, one run
+   each
    (P-192 verify-only: verify and derive); then SM2-DSA and bign-DSA
    (`sm2_bign_phase`) at WIDE_COUNT messages on the sm2 and bign256
    builds: SM2's (r, s) at the caller's k against the host formula, every
    signature of both verified on the card, their vectors accepted and
    their bit flips refused, with the launches each protocol made.
-11. Schnorr, ECDH and hash-to-curve (after step 10; vectors from
+11. Schnorr, ECDH and hash-to-curve (after step 2; vectors from
    tests/vectors/bip340.json and rfc9380_h2c.json): BIP340 on secp256k1
    (`schnorr_phase`: the sign vectors 0-3 byte for byte, the verify vectors
    0-14 and a tampered signature; CHUNK random (d, msg, aux) signed
@@ -97,7 +117,7 @@
    WIDE_COUNT). Every core call's launches of ladder, genmul and pow must
    equal PROTOCOL_LAUNCHES. Prints each phase's seconds and each rate
    (one run, host-bound).
-7. MSM (`msm_phase`): 2^20 points P_i = a_i*G made on the card
+7. MSM (`msm_phase`, after step 6): 2^20 points P_i = a_i*G made on the card
    (`derive_public_batch`) and full-width k_i, from a seed. Holds the four
    Pippenger phase kernels against their twins on the card at the shapes
    the first group of windows gives them (segscan signed and unsigned,
@@ -112,8 +132,12 @@
    times. A Straus `msm()` at 4096 points is checked the same way, with
    the ladder launched. Then one core run under torch.profiler gives the
    device time of each step of msm_pippenger (its `msm/<step>` ranges).
-   Last, the same phase on P-384 at 2^16 points (its 28 windows in one
-   group; no variants).
+   Then the same phase on P-384 at 2^16 points (its 28 windows in one
+   group; no variants). Last (step 7b), the same phase runs on each of
+   MSM_CURVES at MSM_CURVE_POINTS = 2^14 points (signed, w = 14, one
+   group of all the windows, 4096 lanes), their horner holds after the
+   last curve, so that the ten horner twins compute on the workers side
+   by side.
 12. The sharded MSM (after step 7, before the probes; `sharded_phase`):
    step 7's tensors released, SHARD_RANKS = 4 ranks spawned on the one
    card in a gloo group (file:// rendezvous under build/sharded/), each
@@ -141,12 +165,14 @@
    at B = 8192 (on the 32-bit layer: by canonical values mod p; then the
    two chains on the same inputs, CHAIN_PAIRS pairs in turns, by the
    profiler's device ms a call), ladder_probe's five variants at B = 4096
-   on 34 windows (by canonical coordinates mod p).
+   on 34 windows (by canonical coordinates mod p; the twins from the
+   workers).
    Then runs the three tools' `main` (tpu_ecc_torch/tools/) at their
    default sizes, each with the counts set to 0 just before and read just
    after, and prints what each probe answered.
-8. Prints the build's, the sharded MSM's and the whole run's seconds, the
-   card's name and
+8. Prints the MSM core's points/s on each curve, the chain's adds/s on
+   the nine curves, the build's (and the background build's), the
+   sharded MSM's and the whole run's seconds, the card's name and
    power limit, a `kernels` JSON line (each kernel and build: its launches
    on its path or per tool run, its error against its twin, its time, its
    twin's time (a worker's on the CPU for the twins of step 10's holds),
@@ -167,7 +193,7 @@ import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -213,6 +239,11 @@ def row_name(name: str, target) -> str:
     with no target, else with the curve or field of its build, as in
     `ladder[p256]` or `mxu_chain[k256mxu.fp]`."""
     return name if target is None or target.name == "secp256k1" else f"{name}[{target.name}]"
+
+
+def row_names(targets) -> list:
+    """The record's names of the kernels of targets = [(target, kernel)]."""
+    return [row_name(name, t) for t, name in targets]
 
 
 def smi(query: str) -> str:
@@ -363,17 +394,22 @@ words, one add; pow's instance for each field; fixup's step from words to
 words, one add; ladder_probe's five variants (kernels.PROBE_VARIANTS)."""
 
 
-def sass_loop_counts(so: str, function: str) -> list:
-    """The instructions of each loop body of the function whose (mangled)
-    name holds `function` in the library `so` (cuobjdump -sass: the span
-    from a backward branch's target to the branch, not counting the branch
-    to itself that ends every function), by sass_class, the largest first
-    (an outer loop's count holds its inner loops'); of the whole function
-    where it has no loop. `function` may name alternatives, "a|b"; raises
-    where the library has no function of that name."""
+def _cuobjdump(so: str) -> str:
+    """cuobjdump -sass of the library `so`."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
+
+
+def sass_loop_counts(text: str, function: str, so: str) -> list:
+    """The instructions of each loop body of the function whose (mangled)
+    name holds `function` in `text`, the cuobjdump -sass of the library
+    `so` (the span from a backward branch's target to the branch, not
+    counting the branch to itself that ends every function), by
+    sass_class, the largest first (an outer loop's count holds its inner
+    loops'); of the whole function where it has no loop. `function` may
+    name alternatives, "a|b"; raises where the library has no function of
+    that name."""
     insts, labels, pending, inside = [], {}, [], False
     for ln in text.splitlines():
         s = ln.strip()
@@ -535,25 +571,57 @@ def msm_phase_ms(core) -> dict:
     return out
 
 
-def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
-    """Steps 3 and 4 on `curve`: verify `count` signatures (a quarter
-    tampered) `verify_runs` times; sign `count` (d, z), derive their keys,
-    verify every signature under them and recover them, `runs` times each
-    (a curve that only verifies, P-192: derive alone), with
-    min(SAMPLE, count // 8) sampled lanes held against the host oracle.
-    Returns the median rates and the launches of one run of each."""
-    from tpu_ecc_torch.ops import scalarmul as SM
+def ecdsa_oracle(curve, count: int) -> dict:
+    """The host oracle's side of `ecdsa_phases` on `curve` (pure Python, so
+    a CPU worker computes it while the card runs other steps): `count`
+    (pub, z, sig, expected) from `signatures`; `count` (d, z) from a seed,
+    min(SAMPLE, count // 8) sampled lanes, and at those lanes the host
+    signature with the pure-Python RFC 6979 nonce (a curve that signs) and
+    d*G."""
     from tpu_ecc_torch.protocols import ecdsa as E
     from tpu_ecc_torch.protocols import rfc6979
     from tpu_ecc_torch.utils import ec_host as H
 
     low_s = curve.name in E.LOW_S_CURVES
+    t = time.perf_counter()
+    pubs, zs, sigs, expect = signatures(curve, count, min(256, count // 4), 5, low_s)
+    rng = np.random.default_rng(6)
+    nb = curve.scalar_bytes
+    ds = [int.from_bytes(rng.bytes(nb), "big") % (curve.n - 1) + 1 for _ in range(count)]
+    zs_s = [int.from_bytes(rng.bytes(nb), "big") % curve.n for _ in range(count)]
+    sample = [int(i) for i in rng.choice(count, min(SAMPLE, count // 8), replace=False)]
+    G = H.aff_generator(curve)
+    signed = {}
+    if curve.name not in E.SIGN_UNSUPPORTED:
+        for i in sample:
+            k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(nb, "big"),
+                                   E.CURVE_HASH[curve.name])
+            signed[i] = H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=low_s)
+    return {"pubs": pubs, "zs": zs, "sigs": sigs, "expect": expect, "ds": ds, "zs_s": zs_s,
+            "sample": sample, "signed": signed,
+            "derived": {i: H.aff_mul(curve, ds[i], G) for i in sample},
+            "seconds": time.perf_counter() - t}
+
+
+def ecdsa_phases(curve, count: int, verify_runs: int, runs: int, oracle) -> dict:
+    """Steps 3 and 4 on `curve`: verify `count` signatures (a quarter
+    tampered) `verify_runs` times; sign `count` (d, z), derive their keys,
+    verify every signature under them and recover them, `runs` times each
+    (a curve that only verifies, P-192: derive alone), with
+    min(SAMPLE, count // 8) sampled lanes held against the host oracle
+    (`oracle`: the future of `ecdsa_oracle` that a CPU worker computes).
+    Returns the median rates and the launches of one run of each."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.protocols import ecdsa as E
+
     signs = curve.name not in E.SIGN_UNSUPPORTED
     chunks = -(-count // CHUNK)
     print(f"verify: {curve.name}, {count} signatures in {chunks} chunk(s)")
     t = time.perf_counter()
-    pubs, zs, sigs, expect = signatures(curve, count, min(256, count // 4), 5, low_s)
-    print(f"  host oracle made the signatures in {time.perf_counter() - t:.1f} s")
+    o = oracle.result()
+    pubs, zs, sigs, expect = o["pubs"], o["zs"], o["sigs"], o["expect"]
+    print(f"  host oracle made the signatures and the sampled lanes in {o['seconds']:.1f} s "
+          f"on a CPU worker; waited {time.perf_counter() - t:.1f} s for them")
     _, rates_v, verify_rate, verify_launches = measure_runs(
         "verify_batch", lambda: E.verify_batch(curve, pubs, zs, sigs), len(sigs),
         verify_runs, ("pow", "ladder"), want=expect)
@@ -562,12 +630,7 @@ def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
           f"runs {[round(r, 1) for r in rates_v]}; launches per run {verify_launches}")
     torch.cuda.synchronize()
 
-    rng = np.random.default_rng(6)
-    nb = curve.scalar_bytes
-    ds = [int.from_bytes(rng.bytes(nb), "big") % (curve.n - 1) + 1 for _ in range(count)]
-    zs_s = [int.from_bytes(rng.bytes(nb), "big") % curve.n for _ in range(count)]
-    sample = [int(i) for i in rng.choice(count, min(SAMPLE, count // 8), replace=False)]
-    G = H.aff_generator(curve)
+    ds, zs_s, sample = o["ds"], o["zs_s"], o["sample"]
     out = {"verify": verify_rate, "verify_launches": verify_launches, "sign": None,
            "sign_launches": None, "recover": None}
     if signs:
@@ -575,9 +638,7 @@ def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
         signed, rates_s, out["sign"], out["sign_launches"] = measure_runs(
             "sign_batch", lambda: E.sign_batch(curve, ds, zs_s), count, runs, ("genmul", "pow"))
         for i in sample:                # nonces from the pure-Python RFC 6979
-            k = rfc6979.generate_k(curve.n, ds[i], zs_s[i].to_bytes(nb, "big"),
-                                   E.CURVE_HASH[curve.name])
-            if signed[i][:2] != H.ecdsa_sign(curve, ds[i], zs_s[i], k, low_s=low_s):
+            if signed[i][:2] != o["signed"][i]:
                 raise AssertionError(f"sign_batch lane {i} disagrees with the host oracle")
         print(f"  {len(sample)} sampled lanes equal the host oracle; signs/s median "
               f"{out['sign']:.1f}, runs {[round(r, 1) for r in rates_s]}; launches per run "
@@ -586,7 +647,7 @@ def ecdsa_phases(curve, count: int, verify_runs: int, runs: int) -> dict:
         "derive_public_batch", lambda: SM.derive_public_batch(curve, ds), count, runs,
         ("genmul", "pow"))
     for i in sample:
-        if pubs_d[i] != H.aff_mul(curve, ds[i], G):
+        if pubs_d[i] != o["derived"][i]:
             raise AssertionError(f"derive_public_batch lane {i} disagrees with the host oracle")
     print(f"  derive: {len(sample)} sampled lanes equal the host oracle; derives/s median "
           f"{out['derive']:.1f}, runs {[round(r, 1) for r in rates_d]}; launches per run "
@@ -1083,9 +1144,25 @@ def chain_pairs(spec, a, b) -> None:
           + f"; mxu_chain faster in {wins} of {CHAIN_PAIRS}")
 
 
-def probes(hold, fields, dev) -> dict:
-    """Step 9: each probe kernel against its twin at its tool's shapes, then
-    the three tools' main at their default sizes, the counts set to 0 just
+def probe_ladder_inputs(curve, dev, pool) -> tuple:
+    """ladder_probe's inputs at LADDER_B lanes (profile_ladder's) and its
+    twins, which the workers of `pool` compute on the CPU from the end of
+    step 1: {variant: Twin}. unroll and build return bare's values (the
+    same selects and adds; unroll differs in compilation, build in a table
+    no one reads), so their twin is bare's."""
+    from tpu_ecc_torch.tools import profile_ladder
+
+    bases, mag, neg = profile_ladder.inputs(curve, LADDER_B, dev)
+    twins = {key: Twin(pool, dev, "ladder_probe_plain", curve, bases, mag, neg, key)
+             for key in ("bare", "select", "negate")}
+    return bases, mag, neg, {v: twins[v if v in twins else "bare"] for v in
+                             ("negate", "bare", "unroll", "build", "select")}
+
+
+def probes(hold, fields, ladder_in, dev) -> dict:
+    """Step 9: each probe kernel against its twin at its tool's shapes
+    (ladder_probe's inputs and twins from `probe_ladder_inputs`), then the
+    three tools' main at their default sizes, the counts set to 0 just
     before each and read just after. Returns {(target, kernel): launches
     per tool run}."""
     from tpu_ecc_torch.curves.specs import get_curve
@@ -1124,24 +1201,12 @@ def probes(hold, fields, dev) -> dict:
                  lambda: K.mxu_chain_plain(spec, a, b), CHAIN_REPS, c=spec,
                  compare=field_diff(spec))
             chain_pairs(spec, a, b)
-    bases, mag, neg = profile_ladder.inputs(curve, LADDER_B, dev)
-    twins = {}
-
-    def ladder_twin(variant):
-        # unroll and build return bare's values (the same selects and adds;
-        # unroll differs in compilation, build in a table no one reads), so
-        # their twin is computed once
-        key = variant if variant in ("select", "negate") else "bare"
-        if key not in twins:
-            twins[key] = K.ladder_probe_plain(curve, bases, mag, neg, key)
-        return twins[key]
-
-    for variant in ("negate", "bare", "unroll", "build", "select"):   # the whole body first
+    bases, mag, neg, twins = ladder_in
+    for variant, twin in twins.items():          # the whole body first
         hold("ladder_probe", f"{variant} nw={profile_ladder.NW} B={LADDER_B}",
-             lambda: K.ladder_probe(curve, bases, mag, neg, variant),
-             lambda: ladder_twin(variant), 3, compare=coord_diff(curve),
-             block=K.PROBE_LANES, nw=profile_ladder.NW, variant=variant)
-    del twins
+             lambda: K.ladder_probe(curve, bases, mag, neg, variant), twin, 3,
+             compare=coord_diff(curve), block=K.PROBE_LANES, nw=profile_ladder.NW,
+             variant=variant)
     torch.cuda.synchronize()
 
     print("tools: bench_gather_probe, bench_mxu_mul, profile_ladder at their default sizes")
@@ -1190,6 +1255,13 @@ def probes(hold, fields, dev) -> dict:
 
 # the eleventh slice: the 32-bit layer at each curve's own word count
 P384_KERNELS = K256_KERNELS          # P-384's path: all ten (the MSM's four too)
+PHASE_KERNELS = ("segscan", "fixup", "bucket_reduce", "horner")
+MSM_CURVES = ("p256", "sm2", "bign256", "p224", "p192", "bp256t1", "bp256r1", "bp384t1",
+              "bp384r1", "p521")
+"""The curves whose MSM phase kernels build in the background from the end
+of step 1 (`msm_targets`) and are held after step 7, in this order: P-256,
+then N = 8, 7 and 6, the Brainpool curves, P-521 (N = 17) last."""
+MSM_CURVE_POINTS = 1 << 14   # their msm(): Pippenger's smallest size, 4096 lanes
 P384_RUNS = 3                        # its runs of each entry point (no claim rests on them)
 P384_MSM_POINTS = 1 << 16
 WIDE_CURVES = ("p521", "p224", "p192", "sm2", "bign256", "bp256t1", "bp384t1", "bp256r1",
@@ -1209,6 +1281,22 @@ def wide_targets(get_curve) -> list:
     each of WIDE_CURVES (a = -3, and the generic a of the r1 curves)."""
     return ([(get_curve("p384"), n) for n in P384_KERNELS]
             + [(get_curve(c), n) for c in WIDE_CURVES for n in WIDE_KERNELS])
+
+
+def msm_targets(get_curve) -> list:
+    """The MSM phase kernels of MSM_CURVES (40 libraries), built in the
+    background from the end of step 1."""
+    return [(get_curve(c), n) for c in MSM_CURVES for n in PHASE_KERNELS]
+
+
+def _timed_build(targets) -> tuple:
+    """kernels.build_targets(targets) at niceness 10: (its reports, its
+    seconds)."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    t = time.perf_counter()
+    reports = K.build_targets(targets, nice=10)
+    return reports, time.perf_counter() - t
 
 
 def _twin(plain: str, args: tuple, kw: dict) -> tuple:
@@ -1249,9 +1337,28 @@ class Twin:
         return self.out.to(self.dev)
 
 
-def step2_holds(curve, p256, p384, point_curves, dev) -> tuple:
-    """Step 2's holds, each twin computed at once (`Twin`), so that they
-    run while the kernels build: padd_chain at POINT_B lanes, repeat 16, on
+def chain_inputs(c, dev) -> tuple:
+    """The chain phase's inputs on curve c: (a, b limbs, a, b host points),
+    POINT_B points each."""
+    a_l, a_pts = _points(c, 1, POINT_B, dev)
+    b_l, b_pts = _points(c, 2, POINT_B, dev)
+    return a_l, b_l, a_pts, b_pts
+
+
+def chain_hold(c, a_l, b_l, twin) -> tuple:
+    """padd_chain's hold at the chain's shape (B = POINT_B, repeat 16) on
+    curve c, for `run_holds`."""
+    from tpu_ecc_torch.ops import kernels as K
+
+    return ("padd_chain", f"{c.name} B={POINT_B} repeat=16",
+            lambda: K.padd_chain(c, a_l, b_l, 16), twin, 20,
+            dict(c=c, compare=coord_diff(c), block=32, repeat=16))
+
+
+def step2_holds(curve, p256, p384, point_curves, dev, pool) -> tuple:
+    """Step 2's holds, each twin computed at once on the card (`Twin`), so
+    that they run while the kernels build, but the Straus shape's, which
+    a worker of `pool` computes on the CPU: padd_chain at POINT_B lanes, repeat 16, on
     secp256k1, P-256 and P-384 (the chain phases' inputs); padd and
     pdouble at POINT_B on every point curve (the single point operations'
     inputs); on secp256k1 pow on both fields at B = CHUNK, the ladder with
@@ -1268,13 +1375,8 @@ def step2_holds(curve, p256, p384, point_curves, dev) -> tuple:
 
     holds, chain_in = [], {}
     for c in (curve, p256, p384):
-        a_l, a_pts = _points(c, 1, POINT_B, dev)
-        b_l, b_pts = _points(c, 2, POINT_B, dev)
-        chain_in[c.name] = (a_l, b_l, a_pts, b_pts)
-        holds.append(("padd_chain", f"{c.name} B={POINT_B} repeat=16",
-                      lambda c=c, a=a_l, b=b_l: K.padd_chain(c, a, b, 16),
-                      Twin(None, dev, "padd_chain_plain", c, a_l, b_l, 16), 20,
-                      dict(c=c, compare=coord_diff(c), block=32, repeat=16)))
+        chain_in[c.name] = a_l, b_l, _, _ = chain_inputs(c, dev)
+        holds.append(chain_hold(c, a_l, b_l, Twin(None, dev, "padd_chain_plain", c, a_l, b_l, 16)))
     for c in point_curves:
         a_l, b_l, _, _ = point_op_inputs(c, dev)
         holds += [("padd", f"{c.name} B={POINT_B}", lambda c=c, a=a_l, b=b_l: K.padd(c, a, b),
@@ -1303,14 +1405,14 @@ def step2_holds(curve, p256, p384, point_curves, dev) -> tuple:
     straus = [(P.point_from_limbs(curve, _points(curve, 20 + t, sl, dev)[0]),
                SM.pack_scalars(curve, [int.from_bytes(rng.bytes(32), "big") for _ in range(sl)],
                                dev)) for t in range(8)]
-    for label, T, glv, terms, bits in (
-            (f"glv T=2 B={CHUNK}", 2, True, [(G, ks[0]), (Q, ks[1])], None),
-            (f"T=1 B={CHUNK}", 1, False, [(Q, ks[0])], 256),
-            (f"Straus glv T=8 B={sl}", 8, True, straus, None)):
+    for label, T, glv, terms, bits, where in (
+            (f"glv T=2 B={CHUNK}", 2, True, [(G, ks[0]), (Q, ks[1])], None, None),
+            (f"T=1 B={CHUNK}", 1, False, [(Q, ks[0])], 256, None),
+            (f"Straus glv T=8 B={sl}", 8, True, straus, None, pool)):
         bases, mag, neg = SM.ladder_inputs(terms, glv=glv, scalar_bits=bits)
         holds.append(("ladder", label,
                       lambda b=bases, m=mag, n=neg, g=glv: K.ladder(curve, b, m, n, glv=g),
-                      Twin(None, dev, "ladder_plain", curve, bases, mag, neg, glv=glv), 3,
+                      Twin(where, dev, "ladder_plain", curve, bases, mag, neg, glv=glv), 3,
                       dict(compare=coord_diff(curve), block=K.ladder_lanes(T, curve), T=T,
                            nw=mag.shape[0], glv=glv)))
     kg = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(CHUNK - 2)]
@@ -1408,11 +1510,13 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float,
     coordinates. Then msm() (signed, w = MSM_W) must equal (sum a_i*k_i
     mod n)*G from one host aff_mul, with every phase kernel launched; the
     device core (packed tensors in, point out, closed by a synchronize)
-    runs MSM_RUNS times. Last, horner on all the window sums against its
-    twin, which a worker of `pool` computed on the CPU meanwhile, and its
-    one-thread bound in both designs' counts. Returns the points, the
-    scalars, the core, msm()'s launches, the core's median points/s and
-    the host check."""
+    runs MSM_RUNS times. Returns the points, the scalars, the core, msm()'s
+    launches, the core's median points/s, the host check and "horner": a
+    function that holds horner on all the window sums against its twin,
+    which a worker of `pool` computes on the CPU meanwhile, and prints its
+    one-thread bound in both designs' counts; the caller runs it when it
+    wants the twin, so that the twins of several curves may compute side by
+    side."""
     from tpu_ecc_torch.ops import fe as F
     from tpu_ecc_torch.ops import kernels as K
     from tpu_ecc_torch.ops import scalarmul as SM
@@ -1521,22 +1625,24 @@ def msm_phase(hold, c, N: int, seed: int, dev, variants: bool, clock_hz: float,
             raise AssertionError(f"the {c.name} MSM core differs between runs")
     rate = float(np.median(rates))
     print(f"  device core: points/s median {rate:.1f}, runs {[round(r, 1) for r in rates]}")
-    hold("horner", f"{c.name} w={MSM_W} nw={nwin}", lambda: K.horner(c, s_all, MSM_W),
-         horner_twin, 5, c=c, B=1, compare=coord_diff(c), nw=nwin, w=MSM_W)
-    thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
-                 / clock_hz for d in K.designs("horner", c)}
-    hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
-    print("  horner's one-thread bound (one instruction per clock): " + ", ".join(
-        f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
+
+    def horner_hold():
+        hold("horner", f"{c.name} w={MSM_W} nw={nwin}", lambda: K.horner(c, s_all, MSM_W),
+             horner_twin, 5, c=c, B=1, compare=coord_diff(c), nw=nwin, w=MSM_W)
+        thread_ms = {d: 1e3 * sum(K.work("horner", c, 1, design=d, nw=nwin, w=MSM_W)[0].values())
+                     / clock_hz for d in K.designs("horner", c)}
+        hold.rows[row_name("horner", c)]["thread_bound_ms"] = min(thread_ms.values())
+        print(f"  {c.name}: horner's one-thread bound (one instruction per clock): " + ", ".join(
+            f"{d} {v:.4f} ms" for d, v in thread_ms.items()))
+
     return {"pts": pts, "a_i": a_i, "k_i": k_i, "core": core, "launches": launches,
-            "rate": rate, "want": want}
+            "rate": rate, "want": want, "horner": horner_hold}
 
 
 SHARD_RANKS = 4          # step 12's ranks, all on the one card
 SHARD_RUNS = 3           # timed runs of each sharded core and of each fold
 SHARD_TIMEOUT = 300      # seconds the ranks may take, spawning included
 SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded")
-PHASE_KERNELS = ("segscan", "fixup", "bucket_reduce", "horner")
 
 
 def host_msm(c, pts, ks):
@@ -1768,6 +1874,54 @@ def sharded_phase(want) -> list:
     return recs
 
 
+def check_builds(targets, sass) -> list:
+    """ptxas's registers and stack of each library of `targets` on the
+    32-bit layer, and of dma_gather's (a library once, under its kernels'
+    names): at N = 8 words (and dma_gather) a spill fails, at N = 6, 7, 12
+    and 17 it is printed, not refused. Returns the SASS to read, [(label,
+    library, kernel)] where sass(target, kernel), for `sass_report`."""
+    from tpu_ecc_torch.ops import kernels as K
+    from tpu_ecc_torch.ops import kfe
+
+    libs, jobs = {}, []
+    for c, name in targets:
+        if c is not None and name in K.FE32_KERNELS or name == "dma_gather":
+            libs.setdefault(K._target(name, c)[0], []).append((c, name))
+    for so, names in libs.items():
+        c, name = names[0]
+        with open(f"{so}.log") as fh:
+            regs, stack = ptxas_report(fh.read())
+        words = (None if c is None else
+                 kfe.fe32_words(c if name in K.FIELD_KERNELS else c.field))
+        flags = " ".join(K._flags(K.KERNELS[name][0], c)[len(K.NVCC_FLAGS):])
+        print(f"  {' and '.join(row_name(n, t) for t, n in names)}"
+              f"{'' if words is None else f' (N = {words})'}{f' [{flags}]' if flags else ''}: "
+              f"{regs}; {stack}")
+        spills = not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
+                                  for ln in stack.split(" | "))
+        if spills and words in (None, 8):
+            raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
+        if sass(c, name):
+            jobs.append((" and ".join(row_name(n, t) for t, n in names), so, name))
+    return jobs
+
+
+def sass_report(jobs) -> list:
+    """The SASS loop bodies by class of each (label, library, kernel) of
+    `jobs` (`check_builds`), as lines to print; mxu_chain's step must hold
+    a warpgroup MMA (GMMA). cuobjdump runs once a library."""
+    lines = []
+    for label, so, name in jobs:
+        text = _cuobjdump(so)
+        lines.append(f"  {label}:")
+        for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
+            bodies = sass_loop_counts(text, fn, so)
+            lines.append(f"    SASS loop bodies of {fn} by class, largest first: {bodies}")
+            if name == "mxu_chain" and not any(b.get("gmma") for b in bodies):
+                raise AssertionError(f"{label}: no warpgroup MMA (GMMA) in its step's SASS")
+    return lines
+
+
 def make_hold(rows: dict, clock_hz: float, default_curve):
     """The hold of phase 2: a function that holds a kernel against its
     plain twin, times both and records the kernel's row in `rows`."""
@@ -1865,6 +2019,11 @@ def run(pool) -> int:
 
     started = time.perf_counter()
     dev = torch.device("cuda")
+
+    def stamp(step: str) -> None:
+        """A step's start on the run's clock, for the breakdown in PERF.md."""
+        print(f"[{time.perf_counter() - started:.1f} s] {step}", flush=True)
+
     curve, p256, p384 = get_curve("secp256k1"), get_curve("p256"), get_curve("p384")
     curves = (curve, p256)
     wide_curves = tuple(get_curve(n) for n in WIDE_CURVES)
@@ -1880,27 +2039,34 @@ def run(pool) -> int:
                      + [(curve, "ladder_probe")])
     targets = ([(curve, name) for name in K256_KERNELS] + [(p256, name) for name in P256_KERNELS]
                + probe_targets + wide_targets(get_curve))
+    # built in the background from the end of step 1 until step 10: the MSM
+    # phase kernels (secp256k1's, P-384's and MSM_CURVES') and the probes'
+    later = ([(c, n) for c, n in targets if n in PHASE_KERNELS] + probe_targets
+             + msm_targets(get_curve))
+    first = [t for t in targets if t not in later]
     step2, chain_in, twins_s = [], {}, []
+    # the host oracle's side of steps 3-6 and 10's main paths, on the workers
+    oracles = {c.name: pool.submit(ecdsa_oracle, c, SIGNS) for c in (curve, p256, p384)}
 
     def prepare():          # plain PyTorch on the card: needs no kernel
         t = time.perf_counter()
-        holds, inputs = step2_holds(curve, p256, p384, point_curves, dev)
+        holds, inputs = step2_holds(curve, p256, p384, point_curves, dev, pool)
         step2.extend(holds)
         chain_in.update(inputs)
         twins_s.append(time.perf_counter() - t)
 
-    reports = K.build_targets(targets, meanwhile=prepare, nice=10)
+    reports = K.build_targets(first, meanwhile=prepare, nice=10)
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s for {len(reports)} libraries of {len(targets)} kernels "
+    build_pool = ThreadPoolExecutor(1)
+    later_build = build_pool.submit(_timed_build, later)
+    print(f"build: {build_s:.1f} s for {len(reports)} libraries of {len(first)} kernels "
           f"(padd is padd_chain's library at one add; nvcc at niceness 10, step 2's twins "
-          f"made meanwhile in {twins_s[0]:.1f} s): {list(K256_KERNELS)} for secp256k1, "
-          f"{list(P256_KERNELS)} for p256, {[row_name(n, t) for t, n in probe_targets]} for "
-          f"the probes, {list(P384_KERNELS)} for p384, {list(WIDE_KERNELS)} for "
-          f"{list(WIDE_CURVES)}")
+          f"made meanwhile in {twins_s[0]:.1f} s): {row_names(first)}; in the background "
+          f"from now until step 10, {len(later)} kernels: {row_names(later)}")
     for (cname, name), rep in reports.items():
         print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
-    print("the 32-bit layer's kernels and dma_gather: ptxas, and the loop bodies in SASS "
-          "against the fe32 count")
+    print("the 32-bit layer's kernels and dma_gather: ptxas (their loop bodies in SASS, "
+          "read at step 8 after every timed step, print there beside these fe32 counts)")
     for c in curves:
         model = kfe.fe32_counts(c)
         print(f"  fe32 count, {c.name}: " + ", ".join(
@@ -1915,75 +2081,60 @@ def run(pool) -> int:
             f"{f} {model[f]}" for f in ("padd", "pdouble", "mul", "sqr", "load", "store"))
             + f", scalar field mul {kfe.fe32_counts(c.scalar)['mul']}"
             + f", sqr {kfe.fe32_counts(c.scalar)['sqr']}")
-    # the builds on the 32-bit layer (a library once, under its kernels'
-    # names): at N = 8 words they must not spill; at N = 6, 7, 12 and 17 a
-    # spill is printed, not refused
-    libs = {}
-    for c, name in targets:
-        if c is not None and name in K.FE32_KERNELS or name == "dma_gather":
-            libs.setdefault(K._target(name, c)[0], []).append((c, name))
-    for so, names in libs.items():
-        c, name = names[0]
-        with open(f"{so}.log") as fh:
-            regs, stack = ptxas_report(fh.read())
-        words = (None if c is None else
-                 kfe.fe32_words(c if name in K.FIELD_KERNELS else c.field))
-        print(f"  {' and '.join(row_name(n, t) for t, n in names)}"
-              f"{'' if words is None else f' (N = {words})'}: {regs}; {stack}")
-        spills = not stack or any("0 bytes spill stores, 0 bytes spill loads" not in ln
-                                  for ln in stack.split(" | "))
-        if spills and words in (None, 8):
-            raise AssertionError(f"{row_name(name, c)} spills: {stack!r}")
-        if (c is None or c in curves or name in K.FIELD_KERNELS
-                or (c.name, name) in SASS_WIDE):
-            for fn in SASS_FUNCTION.get(name, (f"{name}_kernel",)):
-                bodies = sass_loop_counts(so, fn)
-                print(f"    SASS loop bodies of {fn} by class, largest first: {bodies}")
-                if name == "mxu_chain" and not any(b.get("gmma") for b in bodies):
-                    raise AssertionError(f"{row_name(name, c)}: no warpgroup MMA (GMMA) in "
-                                         "its step's SASS")
+
+    def sass(c, name):
+        return c is None or c in curves or name in K.FIELD_KERNELS or (c.name, name) in SASS_WIDE
+
+    sass_jobs = check_builds(first, sass)
     t0 = time.perf_counter()
     native.build()
     print(f"  native (g++): {time.perf_counter() - t0:.1f} s")
     # the new curves' holds at their path's shapes, their twins computed by
-    # the workers on the CPU while steps 2-6 run
+    # the workers on the CPU while the background build runs
     t10 = time.perf_counter()
     wide_holds = {c.name: curve_holds(c, WIDE_COUNT, dev, ("pow", "ladder", "genmul"), pool)
                   for c in wide_curves}
     wide_s = time.perf_counter() - t10
+    oracles.update({c.name: pool.submit(ecdsa_oracle, c, WIDE_COUNT) for c in wide_curves})
+    probe_ladder = probe_ladder_inputs(curve, dev, pool)     # step 9's twins, on the workers
     torch.cuda.synchronize()
 
-    # -- 2. each kernel against its plain twin, at the main path's shapes ---
     rows = {}
     hold = make_hold(rows, clock_hz, curve)
-    print("hold: kernels against their plain twins (secp256k1, then the point kernels "
-          "of every curve, P-256's and P-384's builds)")
-    run_holds(hold, step2)
-    del step2
 
-    # -- 3.-5. the main path on secp256k1: ECDSA, the point-add chain --------
-    k256 = ecdsa_phases(curve, SIGNS, VERIFY_RUNS, RUNS)
-    k256["adds"], chain_launches = chain_phase(curve, *chain_in[curve.name])
-    single = single_point_ops(point_curves, dev)
+    # -- the background build's end: no timing runs beside nvcc --------------
+    stamp("background build")
+    t2 = time.perf_counter()
+    later_reports, later_s = later_build.result()
+    build_pool.shutdown()
+    print(f"build (background, from the end of step 1): {later_s:.1f} s for "
+          f"{len(later_reports)} libraries; waited {time.perf_counter() - t2:.1f} s for it "
+          "before step 10, so that no timing runs beside nvcc")
+    for (cname, name), rep in later_reports.items():
+        print(f"  {cname} {name}: {ptxas_report(rep)[0]}")
+    sass_jobs += check_builds(later, sass)
 
-    # -- 6. the P-256 path: ECDSA, the point-add chain ------------------------
-    p = ecdsa_phases(p256, SIGNS, VERIFY_RUNS, RUNS)
-    p["adds"], p_chain_launches = chain_phase(p256, *chain_in[p256.name])
-
-    # -- 10. the new curves: P-384's path, then the others' holds and ECDSA ---
+    # -- 10. the new curves: the other builds' holds, ECDSA --------------------
+    stamp("step 10")
     t10 = time.perf_counter()
-    q = ecdsa_phases(p384, SIGNS, P384_RUNS, P384_RUNS)
-    q["adds"], q_chain_launches = chain_phase(p384, *chain_in[p384.name])
     print(f"hold: the new curves' builds at their path's shapes (B = {WIDE_COUNT}), the "
           "twins computed by the workers on the CPU")
     for holds in wide_holds.values():
         run_holds(hold, holds)
     del wide_holds
-    wide = {c.name: ecdsa_phases(c, WIDE_COUNT, 1, 1) for c in wide_curves}
+    wide = {c.name: ecdsa_phases(c, WIDE_COUNT, 1, 1, oracles.pop(c.name)) for c in wide_curves}
     sm2_bign_phase(WIDE_COUNT)
     wide_s += time.perf_counter() - t10
 
+    # -- 2. each kernel against its plain twin, at the main path's shapes ---
+    stamp("step 2")
+    print("hold: kernels against their plain twins (secp256k1, then the point kernels "
+          "of every curve, P-256's and P-384's builds)")
+    run_holds(hold, step2)
+    del step2
+
     # -- 11. Schnorr, ECDH and hash-to-curve -----------------------------------
+    stamp("step 11")
     print("Schnorr, ECDH and hash-to-curve (the holds: the ECDH ladder's shape, pow at "
           "the SSWU exponent)")
     proto_s = {}
@@ -1994,8 +2145,33 @@ def run(pool) -> int:
         proto_s[label] = time.perf_counter() - t11
     print("  seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in proto_s.items()))
 
-    # -- 7. MSM: Pippenger at 2^20 points, Straus at 4096 --------------------
+    # -- 3.-5. the main path on secp256k1: ECDSA, the point-add chain --------
+    stamp("steps 3-5")
+    k256 = ecdsa_phases(curve, SIGNS, VERIFY_RUNS, RUNS, oracles.pop(curve.name))
+    k256["adds"], chain_launches = chain_phase(curve, *chain_in[curve.name])
+    single = single_point_ops(point_curves, dev)
+
+    # -- 6. the P-256 path, then P-384's; the chain on the nine others -------
+    stamp("step 6")
+    p = ecdsa_phases(p256, SIGNS, VERIFY_RUNS, RUNS, oracles.pop(p256.name))
+    p["adds"], p_chain_launches = chain_phase(p256, *chain_in[p256.name])
+    t10 = time.perf_counter()
+    q = ecdsa_phases(p384, SIGNS, P384_RUNS, P384_RUNS, oracles.pop(p384.name))
+    q["adds"], q_chain_launches = chain_phase(p384, *chain_in[p384.name])
+    print(f"hold: padd_chain at its chain's shape (B = {POINT_B}, repeat 16) on "
+          f"{list(WIDE_CURVES)}, the twins computed at once on the card; adds/s")
+    wide_adds, wide_chain_launches = {}, {}
+    for c in wide_curves:
+        a_l, b_l, a_pts, b_pts = chain_inputs(c, dev)
+        run_holds(hold, [chain_hold(c, a_l, b_l,
+                                    Twin(None, dev, "padd_chain_plain", c, a_l, b_l, 16))])
+        wide_adds[c.name], wide_chain_launches[c.name] = chain_phase(c, a_l, b_l, a_pts, b_pts)
+    wide_s += time.perf_counter() - t10
+
+    # -- 7. MSM: Pippenger at 2^20 points, Straus ------------------------------
+    stamp("step 7")
     k_msm = msm_phase(hold, curve, MSM_POINTS, 8, dev, True, clock_hz, pool)
+    k_msm["horner"]()
     pts, a_i, k_i = k_msm["pts"], k_msm["a_i"], k_msm["k_i"]
     print(f"msm(): {STRAUS_POINTS} points (Straus)")
     want_s = H.aff_mul(curve, sum(a * k for a, k in zip(a_i[:STRAUS_POINTS],
@@ -2018,11 +2194,26 @@ def run(pool) -> int:
 
     t10 = time.perf_counter()
     q_msm = msm_phase(hold, p384, P384_MSM_POINTS, 18, dev, False, clock_hz, pool)
+    q_msm["horner"]()
     del q_msm["core"]
     wide_s += time.perf_counter() - t10
+
+    # -- 7b. the MSM on MSM_CURVES at 2^14 points ------------------------------
+    stamp("step 7b")
+    t7 = time.perf_counter()
+    curve_msm = {}
+    for i, name in enumerate(MSM_CURVES):
+        m = msm_phase(hold, get_curve(name), MSM_CURVE_POINTS, 60 + i, dev, False, clock_hz,
+                      pool)
+        curve_msm[name] = {k: m[k] for k in ("launches", "rate", "horner")}
+        del m
+    for m in curve_msm.values():            # their twins, computed side by side meanwhile
+        m.pop("horner")()
+    msm_curves_s = time.perf_counter() - t7
     pool.shutdown()
 
     # -- 12. the sharded MSM: SHARD_RANKS ranks on the one card ---------------
+    stamp("step 12")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
@@ -2030,9 +2221,16 @@ def run(pool) -> int:
     sharded_s = time.perf_counter() - t12
 
     # -- 9. the probes (before the record of step 8) ---------------------------
-    probe_launches = probes(hold, probe_fields, dev)
+    stamp("step 9")
+    probe_launches = probes(hold, probe_fields, probe_ladder, dev)
 
     # -- 8. the record --------------------------------------------------------
+    stamp("step 8")
+    t8 = time.perf_counter()
+    sass_lines = sass_report(sass_jobs)
+    print(f"the loop bodies in SASS against the fe32 count (read in "
+          f"{time.perf_counter() - t8:.1f} s):")
+    print("\n".join(sass_lines))
     launches = {(curve, "padd_chain"): chain_launches,
                 (p256, "padd_chain"): p_chain_launches,
                 (p384, "padd_chain"): q_chain_launches,
@@ -2042,7 +2240,10 @@ def run(pool) -> int:
                 **{(c, "genmul"): (r["sign_launches"] or r["derive_launches"])["genmul"]
                    for c, r in zip((curve, p256, p384) + wide_curves, (k256, p, q, *wide.values()))},
                 **{(c, name): m["launches"][name] for c, m in ((curve, k_msm), (p384, q_msm))
-                   for name in ("segscan", "fixup", "bucket_reduce", "horner")},
+                   for name in PHASE_KERNELS},
+                **{(get_curve(c), name): m["launches"][name] for c, m in curve_msm.items()
+                   for name in PHASE_KERNELS},
+                **{(c, "padd_chain"): wide_chain_launches[c.name] for c in wide_curves},
                 **{(c, name): single[c.name][name] for c in point_curves
                    for name in ("padd", "pdouble")},
                 **probe_launches}
@@ -2059,9 +2260,14 @@ def run(pool) -> int:
               f"{r['derive']:.1f} derives/s, {r['recover']:.1f} recovers/s (medians of "
               f"{runs}), {r['adds']:.6g} adds/s")
     print(f"msm, secp256k1: {k_msm['rate']:.1f} MSM points/s at 2^20 points; p384: "
-          f"{q_msm['rate']:.1f} at 2^16 (medians of {MSM_RUNS})")
-    print(f"build {build_s:.1f} s; the new curves' phases took {wide_s:.1f} s; Schnorr, ECDH "
-          f"and hash-to-curve {sum(proto_s.values()):.1f} s; the sharded MSM {sharded_s:.1f} s; "
+          f"{q_msm['rate']:.1f} at 2^16; at 2^14: " + ", ".join(
+              f"{c} {m['rate']:.1f}" for c, m in curve_msm.items()) + f" (medians of {MSM_RUNS})")
+    print("padd_chain at B = 8192, repeat 16, adds/s: " + ", ".join(
+        f"{c} {v:.6g}" for c, v in wide_adds.items()))
+    print(f"build {build_s:.1f} s, and {later_s:.1f} s in the background for "
+          f"{len(later_reports)} more libraries; the new curves' phases took {wide_s:.1f} s, "
+          f"their MSM {msm_curves_s:.1f} s; Schnorr, ECDH and hash-to-curve "
+          f"{sum(proto_s.values()):.1f} s; the sharded MSM {sharded_s:.1f} s; "
           f"chip_smoke took {time.perf_counter() - started:.1f} s in all")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))

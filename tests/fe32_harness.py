@@ -6,7 +6,10 @@ the boundary converters and the kernels' per-lane bodies on uint32 arrays
 from stdin; and the helpers that make its inputs and read its outputs.
 """
 
+import hashlib
+import os
 import pathlib
+import shlex
 import shutil
 import subprocess
 
@@ -240,17 +243,40 @@ int main(int argc, char** argv) {
 """
 
 
+HARNESS_CACHE = pathlib.Path(kernels.BUILD_DIR).parent / "harness"
+"""Built harnesses, one directory a curve and content hash, so that the
+test files that build the same curve's harness (tests/test_torch_fe32_wide.py
+and the MSM bodies' file) build it once a checkout."""
+
+
 def compile_harness(cname: str, d: pathlib.Path):
-    """Start g++ on the harness for curve `cname` in directory d (-O0).
-    Returns (the executable's path, the g++ process)."""
+    """Start g++ on the harness for curve `cname` in directory d (-O0), or
+    take the one HARNESS_CACHE holds for the same header, harness and csrc/
+    headers. Returns (the executable's path, the g++ process: a finished
+    no-op where the cache held it)."""
+    header = kfe.fe32_header(get_curve(cname))
+    cmd_flags = ["-O0", "-std=c++17"]
+    texts = [header, _HARNESS, *cmd_flags] + [
+        (pathlib.Path(kernels.CSRC) / f).read_text() for f in ("fe32.cuh", "point32.cuh")]
+    key = hashlib.sha256("\0".join(texts).encode()).hexdigest()[:16]
+    cached = HARNESS_CACHE / f"{cname}-{key}" / "harness"
+    if cached.exists():
+        return cached, subprocess.Popen(["true"], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT)
     gxx = shutil.which("g++")
     d.mkdir(parents=True, exist_ok=True)
-    (d / "kfe_fe32.cuh").write_text(kfe.fe32_header(get_curve(cname)))
+    (d / "kfe_fe32.cuh").write_text(header)
     (d / "harness.cpp").write_text(_HARNESS)
     exe = d / "harness"
-    cmd = [gxx, "-O0", "-std=c++17", "-I", str(d), "-I", kernels.CSRC, "-o", str(exe),
-           str(d / "harness.cpp")]
-    return exe, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    tmp = cached.with_name(f"harness.{os.getpid()}.{d.name}")
+    build = " ".join(shlex.quote(a) for a in [
+        gxx, *cmd_flags, "-I", str(d), "-I", kernels.CSRC, "-o", str(exe), str(d / "harness.cpp")])
+    # the copy into the cache lands whole (a rename) or not at all
+    cache = (f"mkdir -p {shlex.quote(str(cached.parent))} && cp {shlex.quote(str(exe))} "
+             f"{shlex.quote(str(tmp))} && mv -f {shlex.quote(str(tmp))} "
+             f"{shlex.quote(str(cached))}")
+    return exe, subprocess.Popen(["sh", "-c", f"{build} && {{ {cache} || true; }}"],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
 def runner(exe):
@@ -373,3 +399,195 @@ def _host_sum(curve, terms):
     for k, pt in terms:
         acc = H.aff_add(curve, acc, H.aff_mul(curve, k, pt))
     return acc
+
+
+# ---------------------------------------------------------------------------
+# the MSM's lane bodies (segscan, bucket_reduce, horner, fixup) on a
+# curve's harness `run`, against the plain twins and the host oracle
+# (tests/test_torch_fe32.py at N = 8, tests/test_torch_fe32_wide.py at the
+# other word counts)
+# ---------------------------------------------------------------------------
+
+def window_group(curve, N, L, w, signed, windows):
+    """The first `windows` windows of a Pippenger MSM over N points (16
+    distinct, tiled) with random full-width scalars plus 0 and n - 1, sorted
+    and laid out as msm_pippenger gives them to segscan (the shapes of
+    tests/test_torch_kernels_cuda.py's small case)."""
+    from tpu_ecc_torch.ops import scalarmul as SM
+    from tpu_ecc_torch.parallel import msm as M
+
+    rng = np.random.default_rng(N + w + signed)
+    G = H.aff_generator(curve)
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, 16)]
+    pts = [pts[i % 16] for i in range(N)]
+    Q = P.from_affine_ints(curve, [p[0] for p in pts], [p[1] for p in pts], "cpu")
+    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(curve.scalar_bytes), "big")
+                             for _ in range(N - 2)]
+    payload, keys, negs, nbuck = M.pippenger_inputs(
+        curve, Q.x, Q.y, torch.zeros(N, dtype=torch.bool),
+        SM.pack_scalars(curve, ks, "cpu"), w, signed=signed)
+    negs = None if negs is None else negs[:windows]
+    return M.sorted_windows(payload, keys[:windows], negs, L), nbuck
+
+
+def check_segscan_body(run, curve, signed):
+    """segscan_lane at N = 512, L = 32, w = 8, two windows side by side:
+    the rows at the run ends, last_key, tail and lead against segscan_plain
+    (mod p); the rows that end no run stay unwritten; bucket_lookup on
+    either's rows and fixup gives the same buckets mod p."""
+    from tpu_ecc_torch.parallel import msm as M
+
+    (skey, key2, val2, neg2), nbuck = window_group(curve, 512, 32, 8, signed, 2)
+    C, lanes, n = key2.shape[0], key2[0].numel(), curve.field.n_limbs
+    arrays = [key2.numpy(), val2.numpy()] + ([neg2.numpy()] if signed else [])
+    out = run("segscan", lanes, C, nbuck, int(signed), arrays=arrays)
+    cut = np.cumsum([C * 3 * n * lanes, lanes, 3 * n * lanes])
+    scanned, last_key, tail, lead = np.split(out, cut)
+    scanned = scanned.reshape(val2.shape)
+    tail, lead = tail.reshape(3, n, *key2.shape[1:]), lead.reshape(3, n, *key2.shape[1:])
+    want = [t.numpy() for t in kernels.segscan_plain(curve, key2, val2, nbuck, neg2)]
+
+    k = key2.numpy()
+    ends = np.ones(k.shape, bool)
+    ends[:-1] = k[1:] != k[:-1]
+    assert 0 < ends.sum() < ends.size
+    rows = np.moveaxis(scanned, 0, 2)[..., ends]          # [3, n, run ends]
+    rows_want = np.moveaxis(want[0], 0, 2)[..., ends]
+    _canonical(curve, rows, 1)
+    assert (_mod_p(curve, rows, 1) == _mod_p(curve, rows_want, 1)).all()
+    assert (np.moveaxis(scanned, 0, 2)[..., ~ends] == 0xFFFFFFFF).all()
+    np.testing.assert_array_equal(last_key.reshape(k.shape[1:]).view(np.int32), want[1])
+    for got, ref in ((tail, want[2]), (lead, want[3])):
+        _canonical(curve, got, 1)
+        assert (_mod_p(curve, got, 1) == _mod_p(curve, ref, 1)).all()
+
+    def buckets(sc, lk, tl, ld):
+        sc, lk, tl, ld = (torch.from_numpy(np.asarray(x).astype(np.int32)) for x in (sc, lk, tl, ld))
+        fixed = kernels.fixup_plain(curve, tl, lk, key2[0], ld)
+        return M.bucket_lookup(curve, skey, sc, fixed, key2[0], nbuck).numpy()
+
+    mine = buckets(scanned, last_key.reshape(k.shape[1:]).view(np.int32), tail, lead)
+    assert (_mod_p(curve, mine, 1) == _mod_p(curve, buckets(*want), 1)).all()
+
+
+def check_bucket_body(run, curve, drop0):
+    """bucket_suffix_lane and bucket_pair_lane step by step as the launch
+    runs them, on 2 windows of 64 buckets, against bucket_reduce_plain mod
+    p, and sum_b (b + 1) S_b (b S_b with drop0) of each window by the host
+    oracle. Among the buckets: O (alone and at a window's ends), P and -P
+    side by side, and two equal points side by side, so that the first
+    step adds a point to itself."""
+    nbuck, groups = 64, 2
+    rng = np.random.default_rng(11 + drop0)
+    G = H.aff_generator(curve)
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, groups * nbuck)]
+    for b in (0, 9, 10, 63, 64, 100, 127):
+        pts[b] = None
+    pts[5] = pts[6]
+    pts[70] = pts[71]
+    pts[30] = (pts[31][0], curve.p - pts[31][1])
+    rows = _steady_limbs(curve, pts, rng)
+    out = run("bucket", groups * nbuck, nbuck, int(drop0), arrays=[rows])
+    got = out.reshape(3, curve.field.n_limbs, groups)
+    _canonical(curve, got, 1)
+    want = kernels.bucket_reduce_plain(
+        curve, torch.from_numpy(rows.astype(np.int64)).reshape(3, -1, groups, nbuck),
+        drop0).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want, 1)).all()
+    assert _affine_of(curve, got) == [
+        _host_sum(curve, [(b + (not drop0), pts[g * nbuck + b]) for b in range(nbuck)])
+        for g in range(groups)]
+
+
+def check_horner_body(run, curve):
+    """horner_lane at w = 4 over 5 window sums (one of them O), MSB first,
+    against horner_plain mod p, and sum_j 2^(4 (4 - j)) S_j by the host
+    oracle."""
+    w, nw = 4, 5
+    rng = np.random.default_rng(12)
+    G = H.aff_generator(curve)
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, nw)]
+    pts[2] = None
+    s_all = np.ascontiguousarray(np.moveaxis(_steady_limbs(curve, pts, rng), 2, 0))
+    got = run("horner", 1, nw, w, arrays=[s_all])
+    got = got.reshape(3, curve.field.n_limbs, 1)
+    _canonical(curve, got, 1)
+    want = kernels.horner_plain(curve, torch.from_numpy(s_all.astype(np.int64)), w).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want[..., None], 1)).all()
+    assert _affine_of(curve, got) == [
+        _host_sum(curve, [(1 << (w * (nw - 1 - j)), pts[j]) for j in range(nw)])]
+
+
+def _fixup_inputs(curve, L, rng):
+    """Two windows of L lanes: the keys (sorted in each window; runs that
+    cross several lanes, one of about 15 lanes; window 1 starts at window
+    0's last key, a run the scan must stop at the window's start) and the
+    affine tails and leads (None for O; a tail beside its negation and two
+    equal tails in one run, so that an add doubles)."""
+    G = H.aff_generator(curve)
+    keys, start = [], 0
+    for _ in range(2):
+        ks = np.sort(np.concatenate([rng.integers(0, 24, 2 * L - 34), np.full(30, 11),
+                                     np.zeros(4, np.int64)])) + start
+        keys.append(ks)
+        start = int(ks[-1])
+    keys = np.stack(keys)                                   # [2, 2L]: lane l's rows 2l, 2l + 1
+    first_key, last_key = keys[:, 0::2], keys[:, 1::2]
+    pts = [H.aff_mul(curve, int(k), G) for k in rng.integers(1, 2**62, 4 * L)]
+    tails, leads = pts[:2 * L], pts[2 * L:]
+    run = [l for l in range(1, L) if last_key[0, l] == last_key[0, l - 1]]
+    neg, eq = run[1], run[-1]
+    tails[neg] = (tails[neg - 1][0], curve.p - tails[neg - 1][1])
+    tails[eq] = tails[eq - 1]
+    for i in {0, 7, 30, 64, 100} - {neg - 1, neg, eq - 1, eq}:
+        tails[i] = None
+    leads[3] = leads[70] = None
+    return first_key, last_key, tails, leads
+
+
+def _fixup_host(curve, first_key, last_key, tails, leads, L):
+    """lead[l] + T[l - 1] where the key continues, T the sum of the tails of
+    l's run up to l within its window, by the host oracle."""
+    out = []
+    for w in range(first_key.shape[0]):
+        T = []
+        for i in range(L):
+            same = i > 0 and last_key[w, i] == last_key[w, i - 1]
+            T.append(H.aff_add(curve, T[-1], tails[w * L + i]) if same else tails[w * L + i])
+        for i in range(L):
+            carry = T[i - 1] if i > 0 and first_key[w, i] == last_key[w, i - 1] else None
+            out.append(H.aff_add(curve, leads[w * L + i], carry))
+    return out
+
+
+def check_fixup_body(run, curve):
+    """fixup_step_lane (6 steps) and fixup_final_lane as the launch runs
+    them, on 2 windows of 64 lanes, against kernels.fixup_plain mod p, and
+    the fixed lanes by the host oracle; then windows of one lane (L = 1,
+    the last launch alone)."""
+    L = 64
+    rng = np.random.default_rng(14)
+    first_key, last_key, tails, leads = _fixup_inputs(curve, L, rng)
+    t_l, lead = _steady_limbs(curve, tails, rng), _steady_limbs(curve, leads, rng)
+    out = run("fixup", 2 * L, L, arrays=[t_l, last_key, first_key, lead])
+    got = out.reshape(3, curve.field.n_limbs, 2 * L)
+    _canonical(curve, got, 1)
+    n = curve.field.n_limbs
+    want = kernels.fixup_plain(
+        curve, torch.from_numpy(t_l.astype(np.int32)).reshape(3, n, 2, L),
+        torch.from_numpy(last_key.astype(np.int32)), torch.from_numpy(first_key.astype(np.int32)),
+        torch.from_numpy(lead.astype(np.int32)).reshape(3, n, 2, L)).numpy()
+    assert (_mod_p(curve, got, 1) == _mod_p(curve, want.reshape(got.shape), 1)).all()
+    assert _affine_of(curve, got) == _fixup_host(curve, first_key, last_key, tails, leads, L)
+    assert last_key[1, 0] == last_key[0, -1]           # a key the scan must not carry over
+    # L = 1: no step, the last launch alone; every lane adds O to its lead
+    w = 6
+    got1 = run("fixup", w, 1, arrays=[t_l[..., :w], last_key[0, :w], first_key[0, :w],
+                                      lead[..., :w]]).reshape(3, n, w)
+    want1 = kernels.fixup_plain(
+        curve, torch.from_numpy(t_l[..., :w].astype(np.int32)).reshape(3, n, w, 1),
+        torch.from_numpy(last_key[0, :w].astype(np.int32)).reshape(w, 1),
+        torch.from_numpy(first_key[0, :w].astype(np.int32)).reshape(w, 1),
+        torch.from_numpy(lead[..., :w].astype(np.int32)).reshape(3, n, w, 1)).numpy()
+    assert (_mod_p(curve, got1, 1) == _mod_p(curve, want1.reshape(got1.shape), 1)).all()
+    assert _affine_of(curve, got1) == leads[:w]

@@ -52,6 +52,10 @@ GENERIC_CURVES = ["bp256r1", "bp384r1"]
 POINT_CURVES = CURVES + ["p192", "p224", "p384", "p521", "sm2", "bign256", "bp256t1",
                          "bp384t1"] + GENERIC_CURVES
 WIDE_CURVES = POINT_CURVES[2:]
+# the curves whose MSM phase kernels are built beside secp256k1's and P-384's
+MSM_CURVES = ["p256", "sm2", "bign256", "p224", "p192", "bp256t1", "bp256r1", "bp384t1",
+              "bp384r1", "p521"]
+PHASE_KERNELS = ("segscan", "fixup", "bucket_reduce", "horner")
 
 
 def _points(curve, seed, b, dev):
@@ -105,10 +109,10 @@ def _canonical(curve, limbs):
                         for c in range(3)], 0)
 
 
-@pytest.mark.parametrize("name", CURVES)
+@pytest.mark.parametrize("name", POINT_CURVES)
 def test_padd_chain_matches_plain(dev, name):
-    """Equal mod p by canonical coordinates (the 32-bit layer), and the
-    kernel's own limbs canonical."""
+    """Equal mod p by canonical coordinates (the 32-bit layer, at each
+    curve's word count), and the kernel's own limbs canonical."""
     curve = get_curve(name)
     a = _points(curve, 1, B, dev)
     b = _points(curve, 2, B, dev)
@@ -345,7 +349,8 @@ def _window_group(curve, dev, N, L, w, signed, windows):
 
     pl = _points(curve, 20, N, dev)
     rng = np.random.default_rng(N + w)
-    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(32), "big") for _ in range(N - 2)]
+    ks = [0, curve.n - 1] + [int.from_bytes(rng.bytes(curve.scalar_bytes), "big")
+                             for _ in range(N - 2)]
     f = curve.field
     payload, keys, negs, nbuck = M.pippenger_inputs(
         curve, F.fe_steady(f, pl[0]), F.fe_steady(f, pl[1]),
@@ -413,23 +418,31 @@ def test_horner_matches_plain(dev, k256):
     _same_mod_p(k256, out, kernels.horner_plain(k256, s_all, 14))
 
 
-@pytest.mark.parametrize("n_points", [1 << 15, 4096])
-def test_msm_on_the_card_equals_host(dev, k256, n_points):
+MSM_CASES = [("secp256k1", 1 << 15), ("secp256k1", 4096)] + [(c, 1 << 14) for c in MSM_CURVES]
+
+
+@pytest.mark.parametrize("name,n_points", MSM_CASES,
+                         ids=["32768", "4096"] + [f"{c}-16384" for c in MSM_CURVES])
+def test_msm_on_the_card_equals_host(dev, name, n_points):
     """msm() on the card (Pippenger from 2^14 points, Straus below) against
-    (sum a_i*k_i mod n)*G for points a_i*G."""
+    (sum a_i*k_i mod n)*G for points a_i*G, full-width scalars: on
+    secp256k1, and at 2^14 points (signed w = 14, 4096 lanes) on each curve
+    whose phase kernels are built beside it, with the four launched."""
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.parallel import msm as M
 
+    curve = get_curve(name)
+    nb = curve.scalar_bytes
     rng = np.random.default_rng(n_points)
-    a = [int.from_bytes(rng.bytes(32), "big") % (k256.n - 1) + 1 for _ in range(n_points)]
-    k = [int.from_bytes(rng.bytes(32), "big") % k256.n for _ in range(n_points)]
-    pts = SM.derive_public_batch(k256, a)
-    want = ec_host.aff_mul(k256, sum(x * y for x, y in zip(a, k)) % k256.n,
-                           ec_host.aff_generator(k256))
+    a = [int.from_bytes(rng.bytes(nb), "big") % (curve.n - 1) + 1 for _ in range(n_points)]
+    k = [int.from_bytes(rng.bytes(nb), "big") % curve.n for _ in range(n_points)]
+    pts = SM.derive_public_batch(curve, a)
+    want = ec_host.aff_mul(curve, sum(x * y for x, y in zip(a, k)) % curve.n,
+                           ec_host.aff_generator(curve))
     kernels.reset_launches()
-    assert M.msm(k256, pts, k) == want
-    used = ("segscan", "fixup", "bucket_reduce", "horner") if n_points >= 1 << 14 else ("ladder",)
-    assert all(kernels.launches[name] > 0 for name in used)
+    assert M.msm(curve, pts, k) == want
+    used = PHASE_KERNELS if n_points >= 1 << 14 else ("ladder",)
+    assert all(kernels.launches[kname] > 0 for kname in used)
 
 
 @pytest.mark.parametrize("name", WIDE_CURVES)
@@ -514,13 +527,57 @@ def test_ladder_straus_shape_on_p521(dev):
     _same_mod_p(p521, out, kernels.ladder_plain(p521, bases, mag, neg))
 
 
+def _phase_holds(curve, dev, drops):
+    """segscan, fixup, bucket_reduce (each drop0 of `drops`) and horner of
+    `curve` at small shapes (N = 512, 32 lanes, w = 8, 2 signed windows;
+    horner over 5 window sums at w = 14), each by canonical coordinates
+    mod p against its twin, segscan at its run-end rows; each launches its
+    own kernel and no other."""
+    from tpu_ecc_torch.parallel import msm as M
+
+    def launched(name, fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        assert kernels.launches[name] > 0
+        assert sum(kernels.launches.values()) == kernels.launches[name], name
+        return out
+
+    (skey, key2, val2, neg2), nbuck = _window_group(curve, dev, 512, 32, 8, True, 2)
+    got = launched("segscan", lambda: kernels.segscan(curve, key2, val2, nbuck, neg2))
+    want = kernels.segscan_plain(curve, key2, val2, nbuck, neg2)
+    ends = torch.ones_like(key2, dtype=torch.bool)
+    ends[:-1] = key2[1:] != key2[:-1]
+    assert torch.equal(*[_canonical(curve, sc.movedim(0, 2)[:, :, ends])
+                         for sc in (got[0], want[0])])
+    assert torch.equal(got[1], want[1])
+    scanned, last_key, tail, lead = want
+    fixed = launched("fixup", lambda: kernels.fixup(curve, tail, last_key, key2[0], lead))
+    _same_mod_p(curve, fixed, kernels.fixup_plain(curve, tail, last_key, key2[0], lead))
+    buckets = M.bucket_lookup(curve, skey, scanned, fixed, key2[0], nbuck)
+    for drop0 in drops:
+        out = launched("bucket_reduce", lambda: kernels.bucket_reduce(curve, buckets, drop0))
+        _same_mod_p(curve, out, kernels.bucket_reduce_plain(curve, buckets, drop0))
+    s_all = _points(curve, 21, 5, dev).permute(2, 0, 1).contiguous()
+    out = launched("horner", lambda: kernels.horner(curve, s_all, 14))
+    _same_mod_p(curve, out, kernels.horner_plain(curve, s_all, 14))
+
+
+@pytest.mark.parametrize("name", MSM_CURVES)
+def test_msm_phases_on_each_curve_match_plain(dev, name):
+    """The phase kernels' builds for P-256 and the nine other curves (N =
+    6, 7, 8 with CIOS, solinas or the Montgomery load, 12 and 17; a = -3
+    and the generic a) against their twins at small shapes, bucket_reduce
+    with and without drop0 (`_phase_holds`)."""
+    _phase_holds(get_curve(name), dev, (False, True))
+
+
 def test_msm_phases_on_p384_match_plain(dev):
     """P-384's builds of padd_chain, segscan, fixup, bucket_reduce and
-    horner at small shapes (N = 512, 32 lanes, w = 8, 2 windows; the
-    chain at repeat 3; horner over 5 window sums), each by canonical
-    coordinates mod p against its twin, and msm() at 2^14 points equal to
-    the host's (sum a_i k_i mod n) G with the four phase kernels
-    launched."""
+    horner at small shapes (the chain at repeat 3; the phases as
+    `_phase_holds`), each by canonical coordinates mod p against its twin,
+    and msm() at 2^14 points equal to the host's (sum a_i k_i mod n) G with
+    the four phase kernels launched."""
     from tpu_ecc_torch.ops import scalarmul as SM
     from tpu_ecc_torch.parallel import msm as M
 
@@ -529,26 +586,7 @@ def test_msm_phases_on_p384_match_plain(dev):
     out = kernels.padd_chain(p384, a, b, 3)
     torch.cuda.synchronize()
     _same_mod_p(p384, out, kernels.padd_chain_plain(p384, a, b, 3))
-    (skey, key2, val2, neg2), nbuck = _window_group(p384, dev, 512, 32, 8, True, 2)
-    got = kernels.segscan(p384, key2, val2, nbuck, neg2)
-    want = kernels.segscan_plain(p384, key2, val2, nbuck, neg2)
-    torch.cuda.synchronize()
-    ends = torch.ones_like(key2, dtype=torch.bool)
-    ends[:-1] = key2[1:] != key2[:-1]
-    assert torch.equal(*[_canonical(p384, sc.movedim(0, 2)[:, :, ends])
-                         for sc in (got[0], want[0])])
-    scanned, last_key, tail, lead = want
-    fixed = kernels.fixup(p384, tail, last_key, key2[0], lead)
-    torch.cuda.synchronize()
-    _same_mod_p(p384, fixed, kernels.fixup_plain(p384, tail, last_key, key2[0], lead))
-    buckets = M.bucket_lookup(p384, skey, scanned, fixed, key2[0], nbuck)
-    out = kernels.bucket_reduce(p384, buckets, False)
-    torch.cuda.synchronize()
-    _same_mod_p(p384, out, kernels.bucket_reduce_plain(p384, buckets, False))
-    s_all = _points(p384, 21, 5, dev).permute(2, 0, 1).contiguous()
-    out = kernels.horner(p384, s_all, 14)
-    torch.cuda.synchronize()
-    _same_mod_p(p384, out, kernels.horner_plain(p384, s_all, 14))
+    _phase_holds(p384, dev, (False,))
     rng = np.random.default_rng(8)
     ai = [int.from_bytes(rng.bytes(48), "big") % (p384.n - 1) + 1 for _ in range(1 << 14)]
     ki = [int.from_bytes(rng.bytes(48), "big") % p384.n for _ in range(1 << 14)]
@@ -556,7 +594,7 @@ def test_msm_phases_on_p384_match_plain(dev):
     kernels.reset_launches()
     assert M.msm(p384, pts, ki) == ec_host.aff_mul(
         p384, sum(x * y for x, y in zip(ai, ki)) % p384.n, ec_host.aff_generator(p384))
-    assert all(kernels.launches[k] > 0 for k in ("segscan", "fixup", "bucket_reduce", "horner"))
+    assert all(kernels.launches[kname] > 0 for kname in PHASE_KERNELS)
 
 
 # the probe kernels (tpu_ecc_torch/tools/)

@@ -34,6 +34,9 @@
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8): 254 registers, 0 bytes of stack,
 // spill stores and spill loads; with 64-bit row offsets it spilled 72 B
 // (the hoisted addresses of the tail stores), hence the 32-bit offsets.
+// On the 8-word curves with a != 0 (the a = -3 and generic-a adds) -O3
+// takes 255 registers and spills 16-64 B; those builds run ptxas at -O1
+// (194-244 registers, no spill; kernels.DENSE_CHAIN_PTXAS).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -105,17 +105,25 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DENSE_CHAIN_PTXAS = "-O1"
-"""ptxas's optimisation level for the two builds at N = 8 words that spill
-at ptxas's default -O3 and not at -O1, where they run as fast or faster:
+"""ptxas's optimisation level for the builds at N = 8 words that spill at
+ptxas's default -O3 and not at -O1 (chip_smoke.py fails a spill at N = 8):
 csrc/padd_chain.cu (the body of both `padd_chain` and `padd`, the chain at
 one add) on a curve whose base field rows load by two Montgomery products
 (kfe's MLOAD: the Brainpool fields, every word of p dense, N0 != 1), where
-bp256t1's inlined add spills 28 B at -O3; and csrc/ladder.cu on a curve
-with the generic a (the Brainpool r1 curves), where bp256r1's ladder
-holds 168 registers and spills 32 B at -O3, and at -O1 takes 148 and none
-(bp384r1: 40 B against none). Every other source and curve builds at
--O3, where secp256k1's chain runs 7.5% faster than at -O1 (PERF.md,
-tools/bench_blocks.py padd_chain and ladder)."""
+bp256t1's inlined add spills 28 B at -O3; csrc/ladder.cu on a curve with
+the generic a (the Brainpool r1 curves), where bp256r1's ladder holds 168
+registers and spills 32 B at -O3, and at -O1 takes 148 and none (bp384r1:
+40 B against none), both as fast or faster at -O1; and csrc/segscan.cu on a
+curve of 8 words with a != 0 (P-256, SM2, bign256, bp256t1, bp256r1), whose
+row loop holds the running sum, the row's point and its sign's select
+beside the a = -3 or generic-a add: at -O3 it takes 255 registers and
+spills 16-64 B, at -O1 194-244 and none (secp256k1's, a = 0, takes 254 at
+-O3 and none). Unlike the other two, segscan at -O1 runs slower than the
+spilling -O3 build, by 1-4% on four of the curves and 35% on bign256
+(device ms at msm()'s 2^14-point shape); the builds take -O1 all the same,
+because a build at 8 words must not spill. Every other source and curve
+builds at -O3, where secp256k1's chain runs 7.5% faster than at -O1
+(PERF.md, tools/bench_blocks.py padd_chain, ladder and segscan)."""
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (source, C entry point, its argtypes before the launch count and
@@ -240,11 +248,14 @@ def _header(name: str, target) -> str:
 def _flags(src_file: str, target) -> tuple:
     """nvcc's flags for a source and target: NVCC_FLAGS, and
     DENSE_CHAIN_PTXAS for padd_chain.cu on a curve whose base field loads
-    by the Montgomery load and for ladder.cu on a curve with the generic a."""
+    by the Montgomery load, for ladder.cu on a curve with the generic a and
+    for segscan.cu on a curve of 8 words with a != 0."""
     curve = target if isinstance(target, CurveSpec) else None
     dense = curve is not None and (
         (src_file == "padd_chain.cu" and kfe.fe32_field_constants(curve.field)["MLOAD"])
-        or (src_file == "ladder.cu" and curve.strategy == "generic"))
+        or (src_file == "ladder.cu" and curve.strategy == "generic")
+        or (src_file == "segscan.cu" and curve.strategy != "a0"
+            and kfe.fe32_words(curve.field) == 8))
     return NVCC_FLAGS + (("-Xptxas", DENSE_CHAIN_PTXAS) if dense else ())
 
 
@@ -275,8 +286,9 @@ def build(curve: CurveSpec, names=None) -> dict:
 def build_targets(targets, meanwhile=None, nice: int = 0) -> dict:
     """Build the kernels of targets = [(target, name), ...] (a target is a
     curve, a field spec or None, see `functions`), one nvcc process per
-    (target, kernel), all started together at niceness `nice`, calls
-    meanwhile() (where given) while they run, and binds them. Returns
+    (target, kernel), all started together at niceness `nice` (through
+    nice(1), so that a thread may call this), calls meanwhile() (where
+    given) while they run, and binds them. Returns
     {(target name, kernel name): nvcc's report} for the kernels built now
     (ptxas registers, spills); a library already built from the same
     source, header and flags is reused, and one that two kernels share
@@ -294,8 +306,10 @@ def build_targets(targets, meanwhile=None, nice: int = 0) -> dict:
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *_flags(src_file, target), "-I", d, "-I", CSRC, "-o", tmp,
                os.path.join(CSRC, src_file)]
+        if nice:
+            cmd = ["nice", "-n", str(nice), *cmd]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True, preexec_fn=(lambda: os.nice(nice)) if nice else None)
+                                text=True)
         jobs[target_name(target), name] = (so, tmp, proc)
     if meanwhile is not None:
         meanwhile()

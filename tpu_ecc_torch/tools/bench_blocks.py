@@ -1,6 +1,7 @@
 """Block sizes of the kernels that take theirs from a macro, and the ptxas
-level of the point-add chain, of the generic-a curves' ladder and of the
-field-multiply chain: registers, spills and time on the card.
+level of the point-add chain, of the generic-a curves' ladder, of the
+segmented scan and of the field-multiply chain: registers, spills and
+time on the card.
 
 csrc/bucket_reduce.cu, csrc/pow.cu, csrc/fixup.cu and csrc/ladder_probe.cu
 take their threads a block from BUCKET_THREADS, POW_THREADS, FIXUP_THREADS
@@ -10,8 +11,8 @@ most rows a warp gathers from GATHER_WARPS and GATHER_ROWS;
 and csrc/fmul_chain.cu its threads from FMUL_THREADS.
 This builds each named kernel in each of its forms (`forms`: 32, 64 and
 128 threads; for dma_gather 4, 8 and 16 warps by 32, 64 and 128 rows,
-nvcc -D<macro>=k; for padd_chain, whose source is also `padd`'s, and for
-ladder, ptxas -O3 and -O1; for fmul_chain 32, 64 and 128 threads each at ptxas -O3 and
+nvcc -D<macro>=k; for padd_chain, whose source is also `padd`'s, for
+ladder and for segscan, ptxas -O3 and -O1; for fmul_chain 32, 64 and 128 threads each at ptxas -O3 and
 -O1; one process each, all started together), prints ptxas's
 registers and spills for each, holds each against its plain twin (by
 canonical values mod p; dma_gather exactly) at the main path's or the
@@ -35,6 +36,11 @@ by torch.profiler's device time of the kernel's launches:
                    (a core call of their smoke's ECDSA) and 4096
     fmul_chain     secp256k1's field, P-256's and k256mxu.fp (secp256k1's p
                    forced onto Montgomery), B = 8192 (bench_mxu_mul's)
+    segscan        the N = 8 curves with a != 0 (P-256, SM2, bign256,
+                   bp256t1, bp256r1) and secp256k1, signed digits at the
+                   shape msm() gives 2^14 points (19 windows of 4096
+                   lanes side by side, C = 4 rows a lane); each form held
+                   by canonical coordinates of the lanes' tail and lead
 
 For fixup it then times, at the size the source builds by default, the C
 entry alone (inputs converted and the scratch allocated once) against the
@@ -43,7 +49,7 @@ events around back-to-back calls and by torch.profiler's device time of
 the calls' launches.
 
     python3 -m tpu_ecc_torch.tools.bench_blocks [bucket_reduce] [pow] [fixup]
-        [ladder_probe] [dma_gather] [padd_chain] [ladder] [fmul_chain]
+        [ladder_probe] [dma_gather] [padd_chain] [ladder] [fmul_chain] [segscan]
 """
 
 from __future__ import annotations
@@ -72,7 +78,9 @@ MACROS = {"bucket_reduce": "BUCKET_THREADS", "pow": "POW_THREADS", "fixup": "FIX
 SIZES = (32, 64, 128)
 GATHER_WARPS, GATHER_ROWS = (4, 8, 16), (32, 64, 128)
 PTXAS_LEVELS = ("-O3", "-O1")
-SWEPT = (*MACROS, "dma_gather", "padd_chain", "ladder", "fmul_chain")
+SWEPT = (*MACROS, "dma_gather", "padd_chain", "ladder", "fmul_chain", "segscan")
+SEGSCAN_CURVES = ("p256", "sm2", "bign256", "bp256t1", "bp256r1", "secp256k1")
+SEGSCAN_POINTS, SEGSCAN_LANES = 1 << 14, 4096      # msm()'s Pippenger at its smallest
 CHAIN_B = 8192
 NBUCK, WINDOWS, LANES, ROWS = 8192, (8, 3), 8192, 128
 POW_B, LADDER_B = 4096, 4096
@@ -86,7 +94,7 @@ def forms(name: str) -> list:
     if name == "dma_gather":
         return [(f"{w} warps x {r} rows", (f"-DGATHER_WARPS={w}", f"-DGATHER_ROWS={r}"))
                 for w in GATHER_WARPS for r in GATHER_ROWS]
-    if name in ("padd_chain", "ladder"):
+    if name in ("padd_chain", "ladder", "segscan"):
         return [(f"ptxas {lv}", ("-Xptxas", lv)) for lv in PTXAS_LEVELS]
     if name == "fmul_chain":
         return [(f"{k} threads, ptxas {lv}", (f"-DFMUL_THREADS={k}", "-Xptxas", lv))
@@ -246,6 +254,23 @@ def cases(names, dev) -> list:
             out.append(("fmul_chain", spec, spec.name,
                         lambda spec=spec, a=a, b=b: K.fmul_chain(spec, a, b),
                         _canonical(spec, K.fmul_chain_plain(spec, a, b)), spec))
+    if "segscan" in names:
+        from ..parallel import msm as M
+
+        rng = np.random.default_rng(7)
+        for c in map(get_curve, SEGSCAN_CURVES):
+            pts = _points(c, SEGSCAN_POINTS, dev, 3)
+            ks = [int.from_bytes(rng.bytes(c.scalar_bytes), "big") for _ in range(SEGSCAN_POINTS)]
+            f = c.field
+            payload, keys, negs, nbuck = M.pippenger_inputs(
+                c, F.fe_steady(f, pts[0]), F.fe_steady(f, pts[1]),
+                torch.zeros(SEGSCAN_POINTS, dtype=torch.bool, device=dev),
+                SM.pack_scalars(c, ks, dev), 14, signed=True)
+            _, key2, val2, neg2 = M.sorted_windows(payload, keys, negs, SEGSCAN_LANES)
+            twin = K.segscan_plain(c, key2, val2, nbuck, neg2)
+            out.append(("segscan", c, f"{c.name} C={key2.shape[0]} lanes={key2[0].numel()}",
+                        lambda c=c, a=(key2, val2, nbuck, neg2): K.segscan(c, *a),
+                        _canonical(f, torch.cat(twin[2:], -1)), f))
     if "dma_gather" in names:
         pay = bench_gather_probe.device_payload(GATHER_N, GATHER_W, dev)
         idx = torch.from_numpy(np.random.default_rng(1).permutation(GATHER_N)
@@ -335,6 +360,8 @@ def main(argv=None) -> dict:
             K._bound[name, tname] = entries[name, tname, form]
             got = run()
             torch.cuda.synchronize()
+            if isinstance(got, tuple):      # segscan: its lanes' tail and lead
+                got = torch.cat(got[2:], -1)
             if not torch.equal(_canonical(spec, got), want):
                 raise AssertionError(f"{name} {label} at {form} differs from its twin")
         for r in range(ROUNDS):
